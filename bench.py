@@ -1,137 +1,81 @@
-"""Headline benchmark: primary rays/s per chip on the teapot scene.
+"""Headline benchmark: primary rays/s on the teapot scene, on a GPU.
 
-Measures the nearest-hit traversal (Pallas megakernel, cluster accel +
-dense rest set) over the reference workload's primary rays — 800x800 with
-4 stratified samples = 2.56M rays/frame (/root/reference/src/main.rs:29-36,
-:321-365) against the default two-teapots-and-ground scene (12,642
-triangles). Baseline target (BASELINE.md): 1e9 primary rays/s per v5e chip.
+Times the nearest-hit query (`tracer.nearest_hit` with the backend "auto"
+resolves to: the Pallas walk on a GPU) over the reference workload's
+primary rays — 800x800 with 4 stratified samples = 2.56M rays per frame
+(/root/reference/src/main.rs:29-36, :321-365) in pixel-block order —
+against the default two-teapots-and-ground scene (12,642 triangles).
 
-Measurement discipline (see raytracing_tpu/utils/timing.py): this runtime
-can serve a repeated (executable, inputs) dispatch from cache without
-re-executing, so every iteration perturbs the ray pack by a scalar folded
-out of the previous result — a true dependency chain. The reported time
-subtracts a null chain (same perturb+fold, no traversal), so the number
-reflects the traversal pipeline itself. A hit-fraction gate refuses to
-report if the kernel traced nothing.
+Each timed call ends in block_until_ready; the first call (compilation)
+is reported apart. A hit-fraction gate refuses to report if the query
+traced nothing. Without a GPU the benchmark exits non-zero: a CPU number
+is not a measurement of this system.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
+Prints ONE JSON line: {"metric", "value", "unit", "platform",
+"device_kind", "device_count", ...}.
 """
 
 import json
+import sys
 import time
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
 from raytracing_tpu.utils.cache import enable_persistent_cache
 
-enable_persistent_cache()
 
-from raytracing_tpu.accel.packets import build_cluster_accel
-from raytracing_tpu.geometry.scene import build_default_scene
-from raytracing_tpu.kernels.traverse import nearest_hit_camera_soa
-from raytracing_tpu.ops.sampling import stratified_offsets
-from raytracing_tpu.utils.timing import sync
+def measure(reps: int = 20) -> dict:
+    """Run the headline measurement and return its record."""
+    from raytracing_tpu.accel.packets import build_cluster_accel
+    from raytracing_tpu.config import RenderConfig
+    from raytracing_tpu.geometry.scene import build_default_scene
+    from raytracing_tpu.models.camera import block_ray_ids, camera_rays_for_ids
+    from raytracing_tpu.tracer import nearest_hit, resolve_backend
 
-BASELINE_RAYS_PER_S = 1e9
-
-
-def _backend_with_retry(deadline_s: float = 600.0,
-                        min_attempts: int = 2) -> str:
-    """The TPU pool behind this runtime can be transiently DOWN (init
-    raises UNAVAILABLE — after a ~25 min internal hang in the observed
-    outage mode) — don't let that turn the round's headline artifact into
-    a stack trace. Retry the backend init until BOTH the deadline and
-    min_attempts are spent (one failed init alone can outlast any sane
-    deadline), then fall back to whatever backend jax has (CPU interpret
-    mode still produces a valid, if slow, measurement)."""
-    t0 = time.time()
-    attempts = 0
-    while True:
-        try:
-            return jax.default_backend()
-        except RuntimeError as e:
-            attempts += 1
-            if attempts >= min_attempts and time.time() - t0 > deadline_s:
-                print(f"# TPU init failed past deadline: {e}", flush=True)
-                jax.config.update("jax_platforms", "cpu")
-                return jax.default_backend()
-            print("# TPU pool unavailable, retrying in 60s", flush=True)
-            time.sleep(60.0)
-
-
-def measure() -> dict:
-    """Run the headline measurement and RETURN the record (callers like
-    bench_suite.py must emit it into their committed artifact — a printed
-    line alone is uncommitted prose)."""
-    on_tpu = _backend_with_retry() == "tpu"
-    w, h, spp = 800, 800, 4
-    measured = w * h * spp
+    dev = jax.devices()
+    if dev[0].platform != "gpu":
+        raise SystemExit(f"bench.py needs a GPU; JAX's default device is "
+                         f"{dev[0].platform!r}")
+    cfg = RenderConfig(backend="auto")
     scene = build_default_scene(t=0.0)
-    accel = build_cluster_accel(scene.mesh, cluster_size=16)
-
-    # Camera mode: rays are derived IN KERNEL from the pinhole formula
-    # (kernels.traverse.nearest_hit_camera_soa) — bitwise identical to the
-    # materialized block-order pack, with zero ray HBM traffic, exactly as
-    # the reference computes each pixel's ray inside its loop
-    # (main.rs:321-365). The dependency chain rides the [spp, 2]
-    # stratified offset table: perturbing it changes EVERY ray, so phase 1
-    # culling, visit lists, and the walk are all state-dependent and no
-    # call can be served from the runtime's dispatch cache.
-    offs0 = jnp.asarray(np.asarray(stratified_offsets(spp)))
-
-    @jax.jit
-    def frame(state, offs):
-        of = offs + state * 1e-12
-        t, _ = nearest_hit_camera_soa(accel, of, width=w, height=h,
-                                      spp=spp, interpret=not on_tpu)
-        hit = jnp.isfinite(t)
-        return jnp.sum(t, where=hit) * 1e-20, jnp.sum(hit)
-
-    @jax.jit
-    def null(state, offs):
-        of = offs + state * 1e-12
-        return jnp.sum(of) * 1e-20, jnp.int32(0)
-
-    def chain(f, iters):
-        # sync (a host readback), NOT block_until_ready: the latter has
-        # been observed to return before execution completes on this
-        # runtime (utils/timing.py docstring, point 2) — it would time
-        # the enqueue, not the traversal.
-        s, hits = sync(f(jnp.float32(0.0), offs0))
-        best = float("inf")
-        for _ in range(3):
-            st = s
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                st, _ = f(st, offs0)
-            sync(st)
-            best = min(best, (time.perf_counter() - t0) / iters)
-        return best, hits
-
-    # warmup / compile — and a sanity gate: on the teapot frame roughly
-    # half the primary rays hit geometry. A broken kernel (or an all-dead
-    # ray pack) would "win" the benchmark by tracing nothing; refuse to
-    # report a number unless the hit count is plausible.
-    iters = 20 if on_tpu else 1
-    dt, hits = chain(frame, iters)
-    hit_frac = float(hits) / measured
-    assert 0.2 < hit_frac < 0.9, f"implausible hit fraction {hit_frac:.3f}"
-    dt_null, _ = chain(null, iters)
-    rays_per_s = measured / max(dt - dt_null, 1e-9)
-
+    accel = build_cluster_accel(scene.mesh)
+    r = cfg.width * cfg.height * cfg.samples_per_pixel
+    o, d = jax.jit(lambda i: camera_rays_for_ids(i, cfg))(
+        block_ray_ids(0, r, cfg))
+    query = jax.jit(lambda o_, d_: nearest_hit(scene.mesh, accel, o_, d_,
+                                               cfg))
+    t0 = time.perf_counter()
+    hit = jax.block_until_ready(query(o, d))
+    first = time.perf_counter() - t0
+    hit_frac = float(np.asarray(hit.hit).mean())
+    if not 0.2 < hit_frac < 0.9:
+        raise SystemExit(f"implausible hit fraction {hit_frac:.3f}")
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        jax.block_until_ready(query(o, d))
+        times.append(time.perf_counter() - t0)
+    best = min(times)
     return {
-        "metric": "primary_rays_per_s_per_chip_teapot",
-        "value": rays_per_s,
+        "metric": "primary_rays_per_s_teapot",
+        "value": r / best,
         "unit": "rays/s",
-        "vs_baseline": rays_per_s / BASELINE_RAYS_PER_S,
+        "seconds_best": best,
+        "seconds_median": float(np.median(times)),
+        "first_call_seconds": first,
+        "hit_fraction": hit_frac,
+        "backend": resolve_backend(cfg.backend),
+        "platform": dev[0].platform,
+        "device_kind": dev[0].device_kind,
+        "device_count": len(dev),
     }
 
 
 def main() -> None:
+    enable_persistent_cache()
     print(json.dumps(measure()))
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -363,95 +363,6 @@ int rt_sah_sweep_order(const float* cent, const float* blo, const float* bhi,
   return 0;
 }
 
-// Kernel data blocks — native twin of accel/packets.py
-// _kernel_blocks_host (same f32 op order; build with -ffp-contract=off so
-// no auto-FMA perturbs the rounding).
-//   tri_verts [S, 3, 3] f32 (S = C*CS padded slots), valid [S] u8.
-//   tri_blocks [C, 9, CS]   v0|e1|e2 rows, triangles on lanes
-//   pmt_blocks [C, 12, CS]  Baldwin-Weber n|k|U|ku|V|kv rows
-//   woop_blocks [C, 8, 6*CS] unit-triangle affine, matmul layout
-//                            (pass nullptr to skip)
-int rt_kernel_blocks(const float* tri_verts, const unsigned char* valid,
-                     long c, long cs, float* tri_blocks, float* pmt_blocks,
-                     float* woop_blocks) {
-  long s_total = c * cs;
-  for (long s = 0; s < s_total; ++s) {
-    const float* tv = tri_verts + s * 9;
-    float m = valid[s] ? 1.0f : 0.0f;
-    float v0[3], e1[3], e2[3];
-    for (int k = 0; k < 3; ++k) {
-      v0[k] = tv[k];
-      e1[k] = (tv[3 + k] - tv[k]) * m;
-      e2[k] = (tv[6 + k] - tv[k]) * m;
-    }
-    long ci = s / cs, li = s % cs;
-    float* tb = tri_blocks + (ci * 9) * cs + li;
-    for (int k = 0; k < 3; ++k) {
-      tb[k * cs] = v0[k];
-      tb[(3 + k) * cs] = e1[k];
-      tb[(6 + k) * cs] = e2[k];
-    }
-    // Baldwin-Weber rows (f32 throughout, matching numpy)
-    float nbw[3] = {e1[1] * e2[2] - e1[2] * e2[1],
-                    e1[2] * e2[0] - e1[0] * e2[2],
-                    e1[0] * e2[1] - e1[1] * e2[0]};
-    float n2 = nbw[0] * nbw[0] + nbw[1] * nbw[1] + nbw[2] * nbw[2];
-    float inv_n2 = n2 > 0.0f ? 1.0f / n2 : 0.0f;
-    float U[3] = {(e2[1] * nbw[2] - e2[2] * nbw[1]) * inv_n2,
-                  (e2[2] * nbw[0] - e2[0] * nbw[2]) * inv_n2,
-                  (e2[0] * nbw[1] - e2[1] * nbw[0]) * inv_n2};
-    float V[3] = {(nbw[1] * e1[2] - nbw[2] * e1[1]) * inv_n2,
-                  (nbw[2] * e1[0] - nbw[0] * e1[2]) * inv_n2,
-                  (nbw[0] * e1[1] - nbw[1] * e1[0]) * inv_n2};
-    float kn = nbw[0] * v0[0] + nbw[1] * v0[1] + nbw[2] * v0[2];
-    float ku = -(U[0] * v0[0] + U[1] * v0[1] + U[2] * v0[2]);
-    float kv = -(V[0] * v0[0] + V[1] * v0[1] + V[2] * v0[2]);
-    float* pb = pmt_blocks + (ci * 12) * cs + li;
-    for (int k = 0; k < 3; ++k) {
-      pb[k * cs] = nbw[k];
-      pb[(4 + k) * cs] = U[k];
-      pb[(8 + k) * cs] = V[k];
-    }
-    pb[3 * cs] = kn;
-    pb[7 * cs] = ku;
-    pb[11 * cs] = kv;
-    if (woop_blocks) {
-      // M = [e1|e2|n]^-1 rows via cross products; det = e1 . (e2 x n)
-      float cn[3] = {nbw[0], nbw[1], nbw[2]};
-      float c23[3] = {e2[1] * cn[2] - e2[2] * cn[1],
-                      e2[2] * cn[0] - e2[0] * cn[2],
-                      e2[0] * cn[1] - e2[1] * cn[0]};
-      float c31[3] = {cn[1] * e1[2] - cn[2] * e1[1],
-                      cn[2] * e1[0] - cn[0] * e1[2],
-                      cn[0] * e1[1] - cn[1] * e1[0]};
-      float det = e1[0] * c23[0] + e1[1] * c23[1] + e1[2] * c23[2];
-      float inv_det = (det > 1e-20f || det < -1e-20f) ? 1.0f / det : 0.0f;
-      float mr[3][3];  // m_rows [row][xyz]
-      for (int k = 0; k < 3; ++k) {
-        mr[0][k] = c23[k] * inv_det;
-        mr[1][k] = c31[k] * inv_det;
-        mr[2][k] = cn[k] * inv_det;
-      }
-      float cst[3];
-      for (int q = 0; q < 3; ++q)
-        cst[q] = -(mr[q][0] * v0[0] + mr[q][1] * v0[1] + mr[q][2] * v0[2]);
-      // w [8 rows, 6 cols] -> layout [C, 8, 6*CS]: col-major per quantity
-      // (row r, col q) lands at woop[(ci*8 + r) * 6*cs + q*cs + li]
-      float* wb = woop_blocks + (ci * 8) * (6 * cs) + li;
-      for (int r = 0; r < 8; ++r)
-        for (int q = 0; q < 6; ++q) wb[r * 6 * cs + q * cs] = 0.0f;
-      // w[:, 0:3, 0:3] = m_rows^T  (w[row k][col q] = mr[q][k])
-      for (int k = 0; k < 3; ++k)
-        for (int q = 0; q < 3; ++q) {
-          wb[k * 6 * cs + q * cs] = mr[q][k];
-          wb[(4 + k) * 6 * cs + (3 + q) * cs] = mr[q][k];
-        }
-      for (int q = 0; q < 3; ++q) wb[3 * 6 * cs + q * cs] = cst[q];
-    }
-  }
-  return 0;
-}
-
 // One midpoint (1:4) subdivision level — native twin of
 // geometry/subdivide.py::subdivide_arrays. Midpoint vertices dedup through
 // canonical (lo, hi) edge keys; NEW VERTEX ORDER matches the numpy

@@ -1,20 +1,21 @@
-"""raytracing_tpu — a TPU-native differentiable ray tracer in JAX/Pallas.
+"""raytracing_tpu — a differentiable ray tracer in JAX/Pallas for GPUs.
 
 Built from scratch to reproduce (and extend) the capabilities of the Rust/AVX2
 CPU ray tracer KristinnVikarJ/raytracing (mounted read-only at /root/reference;
 see SURVEY.md for the structural analysis). Nothing here is a port: the 8-wide
 `__m256` SIMD kernels of the reference (`src/simd_accel.rs`) become vectorized
-XLA ops and Pallas TPU kernels over SoA arrays, the recursive `trace_ray`
+XLA ops and a Pallas walk kernel over SoA arrays, the recursive `trace_ray`
 (`src/main.rs:88-311`) becomes an iterative wavefront over statically-shaped
 ray levels, and rayon scanline parallelism (`src/main.rs:317-319`) becomes
-`shard_map` over a TPU device mesh.
+`shard_map` over a device mesh.
 
 Public surface:
   config      — RenderConfig / SceneConfig (the reference's missing CLI/config)
   geometry    — OBJ loading, SoA meshes, scene construction
   accel       — host-side acceleration-structure builds (packets, BVH)
   ops         — intersection / sampling / color math (pure JAX)
-  kernels     — Pallas TPU megakernels for the intersection hot loop
+  kernels     — the Pallas (Triton) walk kernel for the intersection hot
+                loop, and wavefront ray binning
   models      — integrators: Whitted (reference-parity), path tracer, inverse
   parallel    — device-mesh sharding of the ray batch, gradient collectives
   utils       — PNG output, profiling, logging

@@ -1,21 +1,21 @@
 """Host-side acceleration-structure build: the flat cluster hierarchy.
 
-TPU-native rethink of the reference's build (/root/reference/src/opt.rs):
-the reference stable-sorts triangles by vertex index for spatial locality
+A rethink of the reference's build (/root/reference/src/opt.rs): the
+reference stable-sorts triangles by vertex index for spatial locality
 (`optimize_model`, opt.rs:11-36), then packs groups of 8 into SIMD packets
 and groups of 64 under 8-wide AABB cluster nodes (`pack_model`,
-opt.rs:38-80). Here the same idea maps to TPU tiling: triangles are sorted
-by Morton code of their centroid (a strictly better locality sort; the
-reference's index sort is also available for parity), packed into
-lane-aligned clusters of `cluster_size` (default 128 = one VPU lane row),
-padded with degenerate triangles, and each cluster gets an AABB. Traversal
-tests a ray against all cluster AABBs (vectorized), then only intersects
-triangles of hit clusters — tile-granular skipping in the Pallas kernel,
-mask-granular in the XLA fallback.
+opt.rs:38-80). Here triangles are ordered by an exact surface-area-heuristic
+split (the reference's index sort is also available for parity), packed
+into clusters of `cluster_size` (a power of two: the walk kernel loads one
+cluster as a [cluster_size] vector per row), padded with degenerate
+triangles, and each cluster gets an AABB. Traversal tests rays against
+cluster AABBs and intersects only the triangles of clusters they enter —
+block-granular skipping in the Pallas walk (kernels/traverse.py),
+mask-granular in the XLA fallback below.
 
-The accel stores only integer orderings and (detached) float bounds: the
-packed Möller–Trumbore triangle form is re-gathered from the live vertex
-pool at trace time (`packed_triangles`), so the structure never blocks
+The walk reads precomputed v0|e1|e2 blocks; everything differentiable
+re-gathers the Möller–Trumbore form from the live vertex pool at trace time
+(`packed_triangles`, `rest_triangles`), so the structure never blocks
 gradient flow to vertices.
 """
 
@@ -40,88 +40,30 @@ class ClusterAccel(NamedTuple):
     slot_valid:  [S] bool — False for padding slots.
     cluster_min: [C, 3] f32 — per-cluster AABB (C = S / cluster_size).
     cluster_max: [C, 3] f32
+    tri_blocks:  [C, 9, CS] f32 — v0 | e1 | e2 component rows with the
+                 cluster's triangles along the last axis (padding slots
+                 have e1 = e2 = 0 and never hit): what the walk kernel
+                 loads per visit, one contiguous [CS] row at a time.
 
-    Kernel-ready blocks, precomputed host-side at build (detached from the
-    autodiff graph by construction — traversal decisions are discrete; the
-    differentiable path re-gathers from the live vertex pool, see
-    `packed_triangles` and kernels/traverse.py). After mutating vertices,
-    rebuild with `build_cluster_accel` (host, ~ms) — the standard
-    BVH-refit contract.
-
-    attr_blocks:  [C, A, CS] f32 — per-triangle shading attributes in
-                  kernel layout. The walk kernel accumulates the winning
-                  triangle's rows alongside t, which replaces the
-                  post-trace attribute gather — a serial ~7 cycles/element
-                  on TPU, measured 19.5 ms for one 2.56 M-ray id gather vs
-                  5.7 ms for the whole traversal — with one vector select
-                  per plane per visit (~0.55 ms/plane/frame). Two modes:
-                    A=4 ("objid", when every object's triangles share one
-                        color — the common case, incl. the reference
-                        scene): normal(3) | obj_id, with color+material
-                        reconstructed EXACTLY from attr_tables by a
-                        trace-time select chain;
-                    A=9 ("full", true per-triangle colors): normal(3) |
-                        color(3) | albedo/pi, reflectivity, roughness.
-                  Detached by construction; the differentiable path
-                  re-gathers in backward only (traverse._lazy_attrs).
-    attr_tables:  [O, 6] f32 (objid mode) — per-object color(3) +
-                  material(3) rows; None in full mode.
-    grad_blocks:  [C, 11, CS] f32 — BACKWARD-ONLY attribute planes:
-                  v0(3) | e1(3) | e2(3) | tri_id | obj_id. The lazy VJP
-                  re-runs the walk with these planes instead of paying
-                  ~12 R-sized serial gathers to re-derive the winning
-                  triangle's vertices and ids (the gathers measured ~70%
-                  of the whole backward pass at wavefront sizes). The
-                  forward/shading path never loads them.
-    rest_grad:    [Rr, 11] f32 — same rows for the rest set.
-    tri_blocks:   [C, 9, CS]  f32 — v0/e1/e2 rows, triangles on lanes
-    pmt_t_blocks: [C, CS, 12] f32 — the Baldwin–Weber rows TRANSPOSED:
-                  triangles on SUBLANES, the 12 quantities on lanes. This
-                  is the walk kernel's default operand: slicing quantity q
-                  is a lane slice producing a native [CS, 1] sublane
-                  column, where the row-major layout needed a
-                  [1, CS] -> [CS, 1] transpose PER QUANTITY PER VISIT
-                  (12 transposes/visit — measured as most of the
-                  per-visit fixed cost; removing them is ~1.9x on the
-                  walk). VMEM pads the 12 lanes to 128 (10.7x logical
-                  size) — the _vmem_group_clusters budget accounts for it.
-    attr_t_blocks:[C, CS, A] f32 — attr_blocks transposed the same way.
-    pmt_blocks:   [C, 12, CS] f32 — Baldwin–Weber precomputed form:
-                  rows n(3), d0 = n·v0, U(3), u0 = -U·v0, V(3), v0c = -V·v0
-                  with U = (e2 x n)/|n|^2, V = (n x e1)/|n|^2. Trades 3
-                  extra stored rows for ~30% fewer VPU ops per
-                  (ray, triangle) in the walk kernel: t from one plane
-                  dot, u/v from two point dots — no per-ray cross products.
-    woop_blocks:  [C, 8, 6*CS] f32 — affine unit-triangle transforms in
-                  matmul layout (see kernels/traverse.pack layout docs)
-    order_blocks: [C, CS] i32 — lane -> original triangle id (0 on padding)
+    Everything is precomputed host-side at build and detached from the
+    autodiff graph (traversal decisions are discrete; the differentiable
+    path re-gathers from the live vertex pool). After moving vertices,
+    rebuild with `build_cluster_accel` — the standard BVH-refit contract.
     """
 
     order: jnp.ndarray
     slot_valid: jnp.ndarray
     cluster_min: jnp.ndarray
     cluster_max: jnp.ndarray
-    tri_blocks: Optional[jnp.ndarray]
-    pmt_blocks: jnp.ndarray
-    pmt_t_blocks: Optional[jnp.ndarray]
-    woop_blocks: Optional[jnp.ndarray]
-    order_blocks: jnp.ndarray
-    attr_blocks: jnp.ndarray
-    attr_t_blocks: jnp.ndarray
-    attr_tables: Optional[jnp.ndarray]
-    # Rest set — the TPU analog of the reference's scalar tail loops
-    # (opt.rs:69-72 rest_tri; consumed at main.rs:157-169): objects with
-    # fewer triangles than a cluster would mostly pad (the 2-triangle
-    # ground plane costs every ray 8 kernel tests for 2 real triangles —
-    # ~24% of all tests on the teapot frame) AND their huge AABBs defeat
-    # culling. They are instead intersected by a dense vectorized XLA
-    # pass over all rays (Rr <= rest_max triangles), merged elementwise
-    # with the kernel result. None when empty.
-    rest_blocks: Optional[jnp.ndarray]   # [Rr, 9] v0|e1|e2 rows
+    tri_blocks: jnp.ndarray
+    # Rest set — the reference's scalar tail loops (opt.rs:69-72
+    # rest_tri; consumed at main.rs:157-169): objects with fewer triangles
+    # than a cluster would mostly pad (the 2-triangle ground plane costs
+    # every ray a whole cluster of tests for 2 real triangles) AND their
+    # huge AABBs defeat culling. They are instead intersected by a dense
+    # XLA pass over all rays (<= rest_max triangles), merged elementwise
+    # with the walk's result. None when empty.
     rest_ids: Optional[jnp.ndarray]      # [Rr] original triangle ids
-    rest_attrs: Optional[jnp.ndarray]    # [Rr, A] attr-plane schema rows
-    grad_blocks: jnp.ndarray             # [C, 11, CS] backward planes
-    rest_grad: Optional[jnp.ndarray]     # [Rr, 11]
 
     @property
     def num_clusters(self) -> int:
@@ -388,23 +330,6 @@ def _sah_sweep_order(cent: np.ndarray, blo: np.ndarray, bhi: np.ndarray,
     return ids3[0]
 
 
-def first_tri_per_object(obj_id: np.ndarray, n_obj: int) -> np.ndarray:
-    """[O] index of the first triangle of each object — the canonical
-    representative row used by the objid-mode attribute tables (one color
-    per object). Shared by the build, refit_attr_planes, and inverse.fit's
-    precompute so the table layout convention lives in ONE place."""
-    obj_id = np.asarray(obj_id)
-    if obj_id.size == 0:
-        return np.zeros(n_obj, dtype=np.int64)
-    # An object with ZERO triangles has no representative row; clamp its
-    # searchsorted position into range. The resulting (arbitrary) row is
-    # never referenced at trace time — no triangle carries that obj_id —
-    # it only keeps the attribute table rectangular.
-    ft = np.minimum(np.searchsorted(np.sort(obj_id), np.arange(n_obj)),
-                    obj_id.size - 1)
-    return np.argsort(obj_id, kind="stable")[ft]
-
-
 def _index_sort_order(tri_v: np.ndarray) -> np.ndarray:
     """The reference's locality sort (`optimize_model`, opt.rs:11-36):
     stable sort by min vertex index ascending, max vertex index descending."""
@@ -414,41 +339,28 @@ def _index_sort_order(tri_v: np.ndarray) -> np.ndarray:
 
 
 def build_cluster_accel(
-    mesh: Mesh, cluster_size: int = 128, method: str = "auto",
-    rest_max: int = 64, variants="auto",
+    mesh: Mesh, cluster_size: int = 32, method: str = "auto",
+    rest_max: int = 64,
 ) -> ClusterAccel:
     """Host-side (numpy) build. `method`: "auto" (= "sah" at every scale),
     "sah" (exact-sweep surface-area-heuristic split, level-synchronous —
     tightest clusters, ~20 s at 1.6M tris), "sah-recursive" (the per-node
     reference implementation, same objective, ~8 min at 1.6M — kept as
     the parity oracle), "median" (BVH-leaf median split), "morton"
-    (Z-order sort), or "index" (reference-parity locality sort). Objects are packed independently so a cluster never spans two
-    objects (mirroring the per-object build of opt.rs; keeps cluster AABBs
-    tight when objects are far apart).
+    (Z-order sort), or "index" (reference-parity locality sort). Objects
+    are packed independently so a cluster never spans two objects
+    (mirroring the per-object build of opt.rs; keeps cluster AABBs tight
+    when objects are far apart).
 
     Objects smaller than a cluster go to the dense REST SET (up to
-    rest_max triangles total; see ClusterAccel.rest_blocks) instead of a
+    rest_max triangles total; see ClusterAccel.rest_ids) instead of a
     mostly-padding cluster — but only when at least one object is big
-    enough to cluster (a rest-only accel would leave the kernel walking
-    nothing).
-
-    variants: which kernel block families to materialize on device.
-    "auto" = all of them up to 100k triangles, only the default ("pmt")
-    beyond — the alternates cost real build time and device transfer
-    (the woop matmul blocks alone are 307 MB at 1.6M triangles). Pass an
-    explicit tuple (e.g. ("pmt", "woop")) to override; unbuilt families
-    are None and selecting their variant at trace time raises."""
+    enough to cluster (a rest-only accel would leave the walk nothing)."""
     verts = np.asarray(mesh.verts)
     tri_v = np.asarray(mesh.tri_v)
     obj_id = np.asarray(mesh.obj_id)
     if method == "auto":
-        # The level-synchronous sweep (_sah_sweep_order) has retired the
-        # old >100k fallback to the median split: exact-SAH quality is now
-        # ~20 s at 1.6M triangles (the recursive sweep took ~8 min).
         method = "sah"
-    if variants == "auto":
-        variants = (("pmt", "mt", "pmtt", "woop")
-                    if tri_v.shape[0] <= 100_000 else ("pmt",))
 
     n_obj = int(obj_id.max()) + 1 if obj_id.size else 0
     counts = [int((obj_id == oi).sum()) for oi in range(n_obj)]
@@ -511,189 +423,39 @@ def build_cluster_accel(
 
     # Cluster AABBs over the actual vertices of valid member triangles.
     c = len(order) // cluster_size
-    tri_verts = verts[tri_v[order]]  # [S, 3 verts, 3]
+    tri_verts = verts[tri_v[order]].astype(np.float32)  # [S, 3 verts, 3]
     big = np.float32(1e30)
     vmin = np.where(valid[:, None, None], tri_verts, big).reshape(c, -1, 3).min(axis=1)
     vmax = np.where(valid[:, None, None], tri_verts, -big).reshape(c, -1, 3).max(axis=1)
 
-    tri_blocks, pmt_blocks, woop_blocks = _kernel_blocks_host(
-        tri_verts.astype(np.float32), valid, c, cluster_size,
-        build_woop="woop" in variants,
-    )
-    # Shading attribute rows in packed order (see ClusterAccel docstring).
-    # Padding slots are all-zero: their planes never win (t = +inf).
-    normals = np.asarray(mesh.normals, dtype=np.float32)
-    colors = np.asarray(mesh.colors, dtype=np.float32)
-    materials = np.asarray(mesh.materials, dtype=np.float32)
-    n_obj = materials.shape[0]
-    # objid mode: one color per object and few enough objects that the
-    # trace-time select chain stays cheaper than 5 more kernel planes.
-    obj_colors = colors[first_tri_per_object(obj_id, n_obj)]
-    uniform = n_obj <= 32 and bool(
-        (colors == obj_colors[obj_id]).all()
-    )
-    if uniform:
-        attrs = np.concatenate(
-            [normals[order], obj_id[order][:, None].astype(np.float32)],
-            axis=1,
-        ) * valid[:, None]
-        attr_tables = jnp.asarray(
-            np.concatenate([obj_colors, materials], axis=1)
-        )
-    else:
-        attrs = np.concatenate(
-            [normals[order], colors[order], materials[obj_id[order]]],
-            axis=1,
-        ) * valid[:, None]
-        attr_tables = None
-    a_rows = attrs.shape[1]
-    attr_t = attrs.reshape(c, cluster_size, a_rows)
-    attr_blocks = attr_t.transpose(0, 2, 1)
-
-    # Backward planes: v0/e1/e2 (= tri_blocks rows) + tri id + obj id.
-    grad_rows = np.concatenate(
-        [tri_blocks,
-         order.astype(np.float32).reshape(c, 1, cluster_size),
-         obj_id[order].astype(np.float32).reshape(c, 1, cluster_size)],
-        axis=1,
-    ).astype(np.float32)
-
-    rest_blocks = rest_ids_j = rest_attrs = rest_grad = None
+    rest_ids = None
     if rest_parts:
-        rest = np.concatenate(rest_parts).astype(np.int64)
-        rv = verts[tri_v[rest]].astype(np.float32)  # [Rr, 3, 3]
-        r_v0 = rv[:, 0]
-        rest_blocks = jnp.asarray(np.concatenate(
-            [r_v0, rv[:, 1] - r_v0, rv[:, 2] - r_v0], axis=1))
-        rest_ids_j = jnp.asarray(rest.astype(np.int32))
-        if uniform:
-            ra = np.concatenate(
-                [normals[rest], obj_id[rest][:, None].astype(np.float32)],
-                axis=1)
-        else:
-            ra = np.concatenate(
-                [normals[rest], colors[rest], materials[obj_id[rest]]],
-                axis=1)
-        rest_attrs = jnp.asarray(ra.astype(np.float32))
-        rest_grad = jnp.asarray(np.concatenate(
-            [np.asarray(rest_blocks),
-             rest.astype(np.float32)[:, None],
-             obj_id[rest].astype(np.float32)[:, None]],
-            axis=1).astype(np.float32))
+        rest_ids = jnp.asarray(np.concatenate(rest_parts).astype(np.int32))
     return ClusterAccel(
         order=jnp.asarray(order.astype(np.int32)),
         slot_valid=jnp.asarray(valid),
         cluster_min=jnp.asarray(vmin.astype(np.float32)),
         cluster_max=jnp.asarray(vmax.astype(np.float32)),
-        tri_blocks=(jnp.asarray(tri_blocks)
-                    if "mt" in variants else None),
-        pmt_blocks=jnp.asarray(pmt_blocks),
-        pmt_t_blocks=(jnp.asarray(
-            np.ascontiguousarray(pmt_blocks.transpose(0, 2, 1))
-        ) if "pmtt" in variants else None),
-        woop_blocks=(jnp.asarray(woop_blocks)
-                     if "woop" in variants else None),
-        order_blocks=jnp.asarray(
-            order.astype(np.int32).reshape(c, cluster_size)
-        ),
-        attr_blocks=jnp.asarray(np.ascontiguousarray(attr_blocks)),
-        attr_t_blocks=jnp.asarray(np.ascontiguousarray(attr_t)),
-        attr_tables=attr_tables,
-        rest_blocks=rest_blocks,
-        rest_ids=rest_ids_j,
-        rest_attrs=rest_attrs,
-        grad_blocks=jnp.asarray(grad_rows),
-        rest_grad=rest_grad,
+        tri_blocks=jnp.asarray(_tri_blocks_host(tri_verts, valid, c,
+                                                cluster_size)),
+        rest_ids=rest_ids,
     )
 
 
-def _kernel_blocks_host(
-    tri_verts: np.ndarray, valid: np.ndarray, c: int, cs: int,
-    build_woop: bool = True,
-) -> Tuple[np.ndarray, np.ndarray]:
-    """Host-side (numpy) build of the Pallas kernel data blocks.
-
-    tri_blocks [C, 9, CS]: v0/e1/e2 component rows, triangles on lanes —
-    the TPU layout of the reference's `pack_triangles` precompute
-    (simd_accel.rs:59-63), with degenerate (e1 = e2 = 0) padding.
-
-    woop_blocks [C, 8, 6*CS]: per-triangle affine unit-triangle transforms
-    (Woop et al.) in matmul layout. For A = [e1 | e2 | n], n = e1 x e2,
-    M = A^-1 maps world points to (u, v, w): a ray hits at t = -oL.z/dL.z,
-    (u, v) = oL.xy + t dL.xy where oL = M(o - v0), dL = M d. The kernel
-    computes oL/dL for a whole ray tile x cluster with ONE [RT, 8] @
-    [8, 6*CS] MXU matmul on rows [ox oy oz 1 dx dy dz 0]; columns are
-    grouped quantity-major (all oLx, then oLy, ...).
-    """
-    from raytracing_tpu.geometry import native
-
-    if native.available():
-        nat = native.kernel_blocks(tri_verts, valid, c, cs, build_woop)
-        if nat is not None:
-            return nat
-
+def _tri_blocks_host(tri_verts: np.ndarray, valid: np.ndarray, c: int,
+                     cs: int) -> np.ndarray:
+    """[S, 3, 3] packed triangle vertices -> [C, 9, CS] v0|e1|e2 rows —
+    the layout of the reference's `pack_triangles` precompute
+    (simd_accel.rs:59-63), with degenerate (e1 = e2 = 0) padding."""
     m = valid[:, None].astype(np.float32)
     v0 = tri_verts[:, 0]
     e1 = (tri_verts[:, 1] - v0) * m
     e2 = (tri_verts[:, 2] - v0) * m
     comp = np.concatenate([v0, e1, e2], axis=1)  # [S, 9]
-    tri_blocks = comp.reshape(c, cs, 9).transpose(0, 2, 1)
-
-    # Baldwin–Weber rows (see ClusterAccel docstring). Padding tris have
-    # n = 0 -> plane denominator 0 -> always rejected by the eps test.
-    nbw = np.cross(e1, e2)
-    n2 = np.einsum("sk,sk->s", nbw, nbw)
-    inv_n2 = np.where(n2 > 0, 1.0 / np.where(n2 > 0, n2, 1.0), 0.0)[:, None]
-    U = np.cross(e2, nbw) * inv_n2
-    V = np.cross(nbw, e1) * inv_n2
-    pmt = np.concatenate(
-        [
-            nbw,
-            np.einsum("sk,sk->s", nbw, v0)[:, None],
-            U,
-            -np.einsum("sk,sk->s", U, v0)[:, None],
-            V,
-            -np.einsum("sk,sk->s", V, v0)[:, None],
-        ],
-        axis=1,
-    ).astype(np.float32)  # [S, 12]
-    pmt_blocks = pmt.reshape(c, cs, 12).transpose(0, 2, 1)
-
-    if not build_woop:
-        return tri_blocks, pmt_blocks, None
-
-    n = np.cross(e1, e2)
-    c23 = np.cross(e2, n)
-    c31 = np.cross(n, e1)
-    det = np.einsum("sk,sk->s", e1, c23)  # = |n|^2
-    ok = np.abs(det) > 1e-20
-    inv_det = np.where(ok, 1.0 / np.where(ok, det, 1.0), 0.0)[:, None]
-    m_rows = np.stack(
-        [c23 * inv_det, c31 * inv_det, n * inv_det], axis=1
-    )  # [S, 3(row), 3(xyz)]
-    const = -np.einsum("sqk,sk->sq", m_rows, v0)  # [S, 3]
-    s = v0.shape[0]
-    w = np.zeros((s, 8, 6), dtype=np.float32)
-    w[:, 0:3, 0:3] = m_rows.transpose(0, 2, 1)
-    w[:, 3, 0:3] = const
-    w[:, 4:7, 3:6] = m_rows.transpose(0, 2, 1)
-    woop_blocks = (
-        w.reshape(c, cs, 8, 6).transpose(0, 2, 3, 1).reshape(c, 8, 6 * cs)
-    )
-    return tri_blocks, pmt_blocks, np.ascontiguousarray(woop_blocks)
+    return np.ascontiguousarray(comp.reshape(c, cs, 9).transpose(0, 2, 1))
 
 
-# The Pallas walk kernel keeps its kernel-block tables VMEM-resident (one
-# DMA per grid step, zero per-visit latency). v5e VMEM is 128 MB; leave
-# room for ray tiles and accumulators. Scenes whose blocks exceed this
-# (~700k triangles at cs=16 -- VMEM pads a [C, 12, 16] table to
-# [C, 16, 128], 10.6x its logical size) are traversed as a SEQUENCE of
-# resident cluster groups, each one an ordinary walk, merged per-ray by
-# elementwise nearest (kernels/traverse._walk_groups).
-_PALLAS_BLOCK_BUDGET_BYTES = 96 * 1024 * 1024
-
-
-_ACCEL_FORMAT_VERSION = 2
+_ACCEL_FORMAT_VERSION = 3
 
 
 def _mesh_fingerprint(mesh: Mesh) -> np.ndarray:
@@ -765,84 +527,12 @@ def load_accel(path: str, mesh: Optional[Mesh] = None,
     return accel
 
 
-def fits_pallas_vmem(accel: ClusterAccel) -> bool:
-    """Whether the accel's kernel blocks fit ONE VMEM-resident group
-    (diagnostic — larger scenes still traverse on the pallas backend via
-    the grouped walk, one launch per group). VMEM tiles pad the minor dim
-    to 128 lanes and the next dim to 8 sublanes."""
-
-    def padded_bytes(a):
-        s = a.shape
-        return 4 * int(np.prod(s[:-2])) * (-(-s[-2] // 8) * 8) \
-            * (-(-s[-1] // 128) * 128)
-
-    biggest = max(padded_bytes(accel.pmt_blocks),
-                  padded_bytes(accel.tri_blocks),
-                  padded_bytes(accel.woop_blocks))
-    return biggest + padded_bytes(accel.attr_blocks) \
-        <= _PALLAS_BLOCK_BUDGET_BYTES
-
-
-def refit_attr_planes(
-    accel: ClusterAccel, mesh: Mesh,
-    first_tri: Optional[np.ndarray] = None,
-) -> ClusterAccel:
-    """Refresh the kernel attribute planes from the LIVE mesh tables — the
-    cheap (device-side, jit-safe) slice of the refit contract for use when
-    colors/materials/normals are optimization parameters (inverse.fit):
-    without it, the pallas forward pass shades with the attributes baked at
-    build time while gradients flow to the live tables, so the descent
-    direction is computed against a stale residual.
-
-    Only the attribute planes are refreshed; bounds and triangle blocks
-    still require a host rebuild when VERTICES move (build_cluster_accel).
-    All outputs are stop_gradient'd: forward VALUES come from the refit
-    planes, gradients flow through traverse._lazy_attrs as before.
-
-    first_tri: [O] static first-triangle index per object (objid mode) —
-    computed from mesh.obj_id when it is concrete; must be passed when
-    calling under jit with a traced mesh."""
-    sg = jax.lax.stop_gradient
-    cs = accel.cluster_size
-    c = accel.num_clusters
-    valid = accel.slot_valid[:, None].astype(mesh.normals.dtype)
-    if accel.attr_tables is not None:
-        obj_plane = accel.attr_blocks[:, 3:4, :]  # static obj ids
-        nrm = sg(mesh.normals)[accel.order] * valid  # [S, 3]
-        planes_t = nrm.reshape(c, cs, 3)
-        attr_blocks = jnp.concatenate(
-            [planes_t.transpose(0, 2, 1), obj_plane], axis=1)
-        attr_t = jnp.concatenate(
-            [planes_t, accel.attr_t_blocks[:, :, 3:4]], axis=2)
-        if first_tri is None:
-            first_tri = first_tri_per_object(
-                np.asarray(mesh.obj_id), accel.attr_tables.shape[0])
-        tbl = jnp.concatenate(
-            [sg(mesh.colors)[jnp.asarray(first_tri)], sg(mesh.materials)],
-            axis=1)
-        accel = accel._replace(attr_blocks=attr_blocks,
-                               attr_t_blocks=attr_t, attr_tables=tbl)
-        if accel.rest_ids is not None:
-            rn = sg(mesh.normals)[accel.rest_ids]
-            accel = accel._replace(rest_attrs=jnp.concatenate(
-                [rn, accel.rest_attrs[:, 3:4]], axis=1))
-        return accel
-    attrs = jnp.concatenate(
-        [mesh.normals, mesh.colors, mesh.materials[mesh.obj_id]], axis=1)
-    attrs_p = sg(attrs)[accel.order] * valid
-    attr_t = attrs_p.reshape(c, cs, -1)
-    accel = accel._replace(attr_blocks=attr_t.transpose(0, 2, 1),
-                           attr_t_blocks=attr_t)
-    if accel.rest_ids is not None:
-        accel = accel._replace(rest_attrs=sg(attrs)[accel.rest_ids])
-    return accel
-
-
 def packed_triangles(mesh: Mesh, accel: ClusterAccel) -> TriangleSoA:
     """Gather the Möller–Trumbore-ready triangle SoA in packed (cluster)
     order from the live vertex pool — differentiable w.r.t. mesh.verts.
-    Padding slots get e1 = e2 = 0 (det 0 -> always miss), the TPU version of
-    the reference's hard 8-exactly packing contract (simd_accel.rs:20-22)."""
+    Padding slots get e1 = e2 = 0 (det 0 -> always miss), the counterpart
+    of the reference's hard 8-exactly packing contract
+    (simd_accel.rs:20-22)."""
     tv = mesh.tri_v[accel.order]
     va = mesh.verts[tv[:, 0]]
     vb = mesh.verts[tv[:, 1]]
@@ -855,8 +545,8 @@ def _cluster_scan(tri: TriangleSoA, accel: ClusterAccel, o, d, eps, nearest: boo
                   t_max=INF):
     """Shared XLA cluster walk: scan clusters, slab-cull, intersect members.
 
-    Pure-XLA semantics note: culled work is masked, not skipped (SIMD); the
-    Pallas kernel (kernels/traverse.py) performs real tile-level skipping.
+    Pure-XLA semantics note: culled work is masked, not skipped; the
+    Pallas walk (kernels/traverse.py) performs real block-level skipping.
     """
     cs = accel.cluster_size
     c = accel.num_clusters
@@ -917,7 +607,7 @@ def nearest_hit_cluster(
 ) -> Hit:
     """Nearest hit through the cluster structure (XLA backend). Returns
     original triangle ids (accel.order applied). The rest set (small
-    objects, see ClusterAccel.rest_blocks) merges in from a dense pass
+    objects, see ClusterAccel.rest_ids) merges in from a dense pass
     over the live vertex pool."""
     from raytracing_tpu.ops.trace import nearest_hit_brute
 

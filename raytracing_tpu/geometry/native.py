@@ -58,16 +58,6 @@ def _load():
             ctypes.c_long,  # cluster size
             ctypes.POINTER(ctypes.c_longlong),  # out order [T]
         ]
-        lib.rt_kernel_blocks.restype = ctypes.c_int
-        lib.rt_kernel_blocks.argtypes = [
-            ctypes.POINTER(ctypes.c_float),  # tri_verts [S,3,3]
-            ctypes.POINTER(ctypes.c_ubyte),  # valid [S]
-            ctypes.c_long,  # C
-            ctypes.c_long,  # CS
-            ctypes.POINTER(ctypes.c_float),  # tri_blocks [C,9,CS]
-            ctypes.POINTER(ctypes.c_float),  # pmt_blocks [C,12,CS]
-            ctypes.POINTER(ctypes.c_float),  # woop_blocks [C,8,6CS] | NULL
-        ]
         lib.rt_subdivide_level.restype = ctypes.c_int
         lib.rt_subdivide_level.argtypes = [
             ctypes.POINTER(ctypes.c_float),  # verts [V,3]
@@ -146,30 +136,6 @@ def sah_sweep_order(cent: np.ndarray, blo: np.ndarray, bhi: np.ndarray,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
     )
     return out if rc == 0 else None
-
-
-def kernel_blocks(tri_verts: np.ndarray, valid: np.ndarray, c: int,
-                  cs: int, build_woop: bool):
-    """Pallas kernel data blocks — identical output to the numpy
-    accel/packets._kernel_blocks_host (csrc is built -ffp-contract=off so
-    the f32 rounding matches op for op)."""
-    lib = _load()
-    if lib is None:
-        return None
-    tv = np.ascontiguousarray(tri_verts, dtype=np.float32)
-    va = np.ascontiguousarray(valid, dtype=np.uint8)
-    tri_blocks = np.empty((c, 9, cs), dtype=np.float32)
-    pmt_blocks = np.empty((c, 12, cs), dtype=np.float32)
-    woop_blocks = (np.empty((c, 8, 6 * cs), dtype=np.float32)
-                   if build_woop else None)
-    rc = lib.rt_kernel_blocks(
-        _f32p(tv), va.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
-        int(c), int(cs), _f32p(tri_blocks), _f32p(pmt_blocks),
-        _f32p(woop_blocks) if build_woop else None,
-    )
-    if rc != 0:
-        return None
-    return tri_blocks, pmt_blocks, woop_blocks
 
 
 def subdivide_level(verts: np.ndarray, tri_v: np.ndarray

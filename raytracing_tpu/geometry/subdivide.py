@@ -10,7 +10,7 @@ which makes it both a large-scene stress generator and its own correctness
 oracle. Host-side numpy; runs once at scene build.
 
 The reference has no counterpart (its scene is fixed at 12,642 triangles);
-this exists because a TPU chip is bored at that size.
+this exists because an accelerator is idle at that size.
 """
 
 from __future__ import annotations

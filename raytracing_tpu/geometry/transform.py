@@ -9,6 +9,7 @@ applied differentiably to one object's vertices inside the loss.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from raytracing_tpu.geometry.mesh import Mesh
@@ -31,7 +32,10 @@ def rotation_matrix(axis_angle: jnp.ndarray) -> jnp.ndarray:
     eye = jnp.eye(3, dtype=axis_angle.dtype)
     s = jnp.sin(theta)
     c = jnp.cos(theta)
-    R = eye + s * K + (1.0 - c) * (K @ K)
+    # HIGHEST: a GPU runs default-precision f32 matmuls in TF32 (~3
+    # decimal digits), which would bend rotations and pose gradients.
+    R = eye + s * K + (1.0 - c) * jnp.matmul(
+        K, K, precision=jax.lax.Precision.HIGHEST)
     # Near theta=0 the formula degrades; blend to first-order I + [w]x.
     small = theta < 1e-5
     R_small = eye + _hat(axis_angle)
@@ -71,6 +75,7 @@ def apply_pose(
     if pivot is None:
         w = touched.astype(mesh.verts.dtype)[:, None]
         pivot = jnp.sum(mesh.verts * w, axis=0) / jnp.maximum(w.sum(), 1.0)
-    moved = (mesh.verts - pivot) @ rot.T + pivot + trans
+    moved = jnp.matmul(mesh.verts - pivot, rot.T,
+                       precision=jax.lax.Precision.HIGHEST) + pivot + trans
     verts = jnp.where(touched[:, None], moved, mesh.verts)
     return mesh._replace(verts=verts)

@@ -1,14 +1,15 @@
 """Wavefront ray binning: sort rays into culling-coherent tiles.
 
-The traversal kernel culls per RAY TILE (kernels/traverse.py): a tile's
-cost is the number of clusters its bounding frustum touches. Primary rays
+The traversal kernel culls per block of consecutive rays
+(kernels/traverse.py): a block's cost is the number of clusters its
+bounding frustum touches. Primary rays
 arrive pre-tiled by pixel block (models/camera.block_permutation), but
 secondary rays inherit their PARENT's order — a shadow/bounce tile then
 mixes hit points from different surfaces (a teapot patch and the ground
 50 units behind it), and its frustum balloons to cover everything in
 between. GPU wavefront tracers solve this with ray sorting (Laine et al.,
-"Megakernels Considered Harmful" — public technique); the TPU version is
-one XLA sort over a compact integer key:
+"Megakernels Considered Harmful" — public technique); here it is one XLA
+sort over a compact integer key:
 
     key = morton(quantized ray origin) << DIR_BITS | direction_bin
 
@@ -88,27 +89,6 @@ def fine_direction_bin(d: jnp.ndarray, ratio_bits: int = 2) -> jnp.ndarray:
     return (oct_ << (2 * ratio_bits)) | (r0 << ratio_bits) | r1
 
 
-def ray_bin_order(
-    o: jnp.ndarray,
-    d: jnp.ndarray,
-    lo: jnp.ndarray,
-    hi: jnp.ndarray,
-    alive: Optional[jnp.ndarray] = None,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Permutation that groups rays by (origin cell, direction cone), with
-    dead rays compacted to the END (their tiles then cull to nothing).
-
-    Returns (order, inv): trace x[order], read results back through inv.
-    NOTE: prefer `bin_sort`/`unsort` — moving data through explicit
-    gathers costs a serial pass per array on TPU; a variadic lax.sort
-    moves every payload in one vectorized op.
-    """
-    key = bin_key(o, d, lo, hi, alive)
-    order = jnp.argsort(key).astype(jnp.int32)
-    inv = jnp.argsort(order).astype(jnp.int32)
-    return order, inv
-
-
 def bin_key(o, d, lo, hi, alive=None, pos_bits: int = POS_BITS,
             dir_ratio_bits: int = 0) -> jnp.ndarray:
     """(origin Morton cell << dir bits) | direction cone; dead lanes get a
@@ -156,11 +136,10 @@ def _sort_cols(key, *cols):
     index). Linear in `cols` with a data-independent (detached) permutation.
 
     The custom VJP exists because jax's native sort autodiff linearizes to
-    a take_along_axis whose TRANSPOSE is a scatter — and per-element
-    scatters are serial on this TPU (~7 cycles/element; utils/timing.py).
-    Moving the cotangents back to input order is itself just the inverse
-    permutation, which one more variadic lax.sort (keyed on sidx) applies
-    at full vector throughput."""
+    a take_along_axis whose TRANSPOSE is a scatter-add. Moving the
+    cotangents back to input order is itself just the inverse
+    permutation, which one more variadic lax.sort (keyed on sidx)
+    applies."""
     n = key.shape[0]
     iota = jnp.arange(n, dtype=jnp.int32)
     out = jax.lax.sort((key, iota) + cols, num_keys=1)
@@ -192,25 +171,30 @@ def bin_sort(key: jnp.ndarray, *payloads):
     pass it to `unsort` to restore original order. Payloads of any dtype;
     [N, k] arrays are split into columns. Gradients flow through float
     payloads; the permutation itself is detached (traversal-decision
-    convention, same as the hit ids)."""
+    convention, same as the hit ids).
+
+    Boolean payloads ride the sort as int32: XLA's GPU compiler rewrites
+    a permutation sort into a scatter whose reduction it then types
+    wrongly for pred elements (an HLO verifier failure)."""
     flat, specs = [], []
     for p in payloads:
+        q = p.astype(jnp.int32) if p.dtype == jnp.bool_ else p
         if p.ndim == 1:
-            flat.append(p)
+            flat.append(q)
             specs.append(None)
         else:
-            cols = [p[:, j] for j in range(p.shape[1])]
-            flat.extend(cols)
+            flat.extend(q[:, j] for j in range(p.shape[1]))
             specs.append(p.shape[1])
     sidx, out = _sort_cols(key, *flat)
     rebuilt, k = [], 0
     for p, spec in zip(payloads, specs):
         if spec is None:
-            rebuilt.append(out[k])
+            r = out[k]
             k += 1
         else:
-            rebuilt.append(jnp.stack(out[k:k + spec], axis=1))
+            r = jnp.stack(out[k:k + spec], axis=1)
             k += spec
+        rebuilt.append(r.astype(jnp.bool_) if p.dtype == jnp.bool_ else r)
     return sidx, tuple(rebuilt)
 
 
@@ -221,15 +205,10 @@ def unsort(sidx: jnp.ndarray, *payloads):
     return rebuilt
 
 
-def scene_bounds(accel) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Quantization box from the accel's cluster AABBs."""
-    return accel.cluster_min.min(axis=0), accel.cluster_max.max(axis=0)
-
-
 def batch_bounds(o: jnp.ndarray, alive: Optional[jnp.ndarray] = None
                  ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Quantization box from the BATCH's own (alive) ray origins — the
-    right box for bounce/shadow binning. `scene_bounds` spans every
+    right box for bounce/shadow binning. The scene's box spans every
     object incl. outliers (the reference scene's ±10,000 ground plane,
     main.rs:430-447), so at pos_bits=3 a cell is ~2,500 units and every
     visible-region bounce origin lands in ONE cell: position binning

@@ -1,336 +1,154 @@
-"""Pallas TPU megakernels: cluster-culled nearest-hit and any-hit.
+"""Cluster-culled nearest-hit and any-hit walk: one Pallas kernel for the GPU.
 
-This layer is the TPU-native replacement for the reference's AVX2 SIMD
-kernels (/root/reference/src/simd_accel.rs): where the reference tests 8
-triangles per `__m256` packet and walks packets/clusters with scalar
-early-outs (main.rs:93-171), this traversal runs in three phases sized for
-the TPU's strengths:
+The reference walks 8-wide SIMD packets under AABB clusters with scalar
+early-outs (main.rs:93-234). Here the same early-out traversal runs in
+three phases:
 
-  phase 1 (XLA, `_tile_visit_lists_soa`) — conservative tile-frustum culling by
-      interval arithmetic: each RAY_TILE-ray tile is summarized by its
-      origin/direction bounding intervals, and a closed-form interval slab
-      test marks every cluster the tile *could* enter. O(tiles x clusters)
-      instead of O(rays x clusters); over-approximation only costs extra
-      (always-miss) triangle tests, never correctness.
-  phase 2 (XLA) — the bitmap is compacted into per-tile visit lists
-      (cluster ids + count) with a tiny stable argsort. This is the ray-
-      coherence bet: rays in a camera tile enter the same few clusters.
-  phase 3 (`_walk_kernel`) — per ray tile, a dynamic-trip-count loop walks
-      ONLY the visited clusters; cluster ids and counts are scalar-
-      prefetched into SMEM (fast scalar reads). Everything is TRANSPOSED:
-      rays live on LANES, triangles on SUBLANES, so per-quantity slicing is
-      sublane-aligned for any cluster size, the final reduction runs over
-      sublanes and lands directly in the [1, RT] output row, and per-lane
-      best (t, slot) accumulators defer all cross-element reduction to one
-      post-loop step (the reference's progressive `closest_splat` re-splat,
-      main.rs:127, is free — each element owns its best).
-      Three intersection variants:
-        "pmt"   — default; Baldwin–Weber precomputed form on the VPU:
-                  t from one plane dot, u/v from two dots of the shared
-                  hit point — the per-ray cross products are folded into
-                  the build-time precompute (12 rows/tri vs MT's 9).
-                  Exact f32; may differ from MT only where two results
-                  are within one rounding of each other.
-        "mt"    — Möller–Trumbore entirely on the VPU as
-                  [CS, 1] x [1, RT] outer-product broadcasts (the 8-wide
-                  simd_accel.rs:282-331 math at [CS, RT] width). Exact f32,
-                  and measured FASTER than the exact-precision matmul form
-                  on v5e: VPU cost ~45 ops/(ray,tri) beats the MXU's
-                  6-pass f32 decomposition of a K=8 matmul whose cost is
-                  output-tiles x passes (K<=128 is padded, not saved).
-        "woop"  — triangles pre-transformed into unit-triangle space
-                  (Woop et al.'s affine form): ONE [8, 6*CS] @ [8, RT]
-                  MXU matmul + ~14-op VPU epilogue. Needs
-                  Precision.HIGHEST (bf16_6x) to be watertight — at TPU
-                  DEFAULT precision the operands are truncated to bf16 and
-                  ~27% of teapot pixels shade wrong. Kept for scenes/
-                  hardware where matmul throughput wins.
+  phase 1 (XLA, `_tile_extents`) — each walk block of RAY_BLOCK consecutive
+      rays is summarized by the bounding intervals of its ALIVE rays'
+      origins and directions (dead lanes may carry garbage and are left
+      out).
+  phase 2 (XLA, `visit_lists`) — a closed-form interval slab test marks
+      every cluster the block's frustum could enter, and one top_k over
+      the negated entry lower bounds compacts the marks into a
+      front-to-back visit list (cluster ids + true count) per block.
+  phase 3 (`_walk_kernel`, Pallas through Triton) — one program per block
+      loops over its visit list with a data-dependent trip count. Each
+      visit first slab-tests the cluster's AABB against every live ray
+      (bounded by the ray's best t so far, or its t_max for occlusion) and
+      skips the cluster when no ray enters it; otherwise it loads the
+      cluster's triangles (cluster_size x 9 f32: v0|e1|e2) and computes a
+      [rays, cluster_size] Möller–Trumbore tile in registers. Nearest
+      queries carry the best (t, slot) per ray; occlusion queries stop as
+      soon as every live ray of the block is occluded.
 
-All kernel data blocks (tri_blocks / woop_blocks / bounds) are precomputed
-into the ClusterAccel at build time — nothing geometry-derived is rebuilt
-per trace call. The kernel emits packed slot ids; callers map slot ->
-original triangle id with one XLA gather over accel.order.
+A block whose true count exceeds the list width scans every cluster in
+index order instead (correct, and such incoherent blocks gain little from
+ordering anyway). The dense rest set (small objects, see ClusterAccel)
+merges in afterwards from one XLA pass.
 
-Differentiability contract: the kernel produces discrete results (original
-triangle id, occlusion bit) and a detached t. `nearest_hit_pallas` wraps t
-in a custom_vjp whose FORWARD is the kernel value (zero extra cost) and
-whose BACKWARD re-derives t from the live vertex pool through
-ops/intersect.moller_trumbore — gradients flow through the continuous
-intersection math, traversal decisions stay detached (SURVEY.md §7), and
-renders that nobody differentiates never pay for the refinement.
+The intersection is computed in the operation order of
+ops/intersect.moller_trumbore, in f32 on the CUDA cores. The kernel
+emits packed slot ids; callers map them to original triangle ids with one
+gather over accel.order.
+
+Differentiability: traversal decisions are discrete and detached. The
+kernel's t is wrapped in `_lazy_t`, a custom VJP whose forward value is the
+kernel's t and whose backward re-derives t from the live vertex pool
+through ops/intersect.moller_trumbore (SURVEY.md §7).
+
+The kernel compiles for a CUDA GPU only. Everywhere else the Pallas
+interpreter runs it, and only when the caller asks with interpret=True.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from raytracing_tpu.accel.packets import ClusterAccel
+from raytracing_tpu.accel.packets import (
+    ClusterAccel,
+    rest_triangles,
+)
 from raytracing_tpu.geometry.mesh import Mesh
 from raytracing_tpu.ops.intersect import INF, TriangleSoA, moller_trumbore
-from raytracing_tpu.ops.trace import Hit
+from raytracing_tpu.ops.trace import Hit, any_hit_brute, nearest_hit_brute
 
-RAY_TILE = 1024  # rays per culling tile: 16x16 pixels x 4 spp in block order
-SUBTILES = 8  # culling tiles per grid step (amortizes per-step cost)
-# NOTE: every tuning global in this block (RAY_TILE, SUBTILES,
-# VISIT_UNROLL, IDS_MODE, STREAM_GROUPS, _EARLY_EXIT_MIN_CLUSTERS,
-# EARLY_EXIT_BATCH) is captured at TRACE time: mutating one does not
-# invalidate functions a caller has already jitted — only freshly traced
-# closures observe the new value (the exp/ sweeps re-jit per setting for
-# exactly this reason). Treat them as build-time constants in library code.
-
-# Visit lists wider than this are truncated by the top_k compaction to keep
-# the SMEM footprint — and therefore the launch count — independent of C.
-# Correctness is preserved for any count: the kernel detects cnt > width and
-# falls back to scanning ALL clusters for that tile (see _walk_kernel). On
-# the coherent teapot frame the max count is 85 (median clusters of 8,
-# 1024-ray tiles), so the fallback only triggers for incoherent batches
-# that culling cannot help.
-_MAX_VISITS = 128
-# Visit-list entries fused per walk-loop trip (see _walk_kernel UNROLL
-# note). Measured on v5e: unrolling only ADDS wasted tests (the loop's
-# fixed cost is small and the accumulator update scales with the fused
-# width), so the default is 1.
-VISIT_UNROLL = 1
-# How visit lists reach the kernel:
-#   "prefetch" — whole [n_tiles, W] array scalar-prefetched into SMEM;
-#                the SMEM budget forces CHUNKED launches at high tile
-#                counts (3 launches + ray-pack slice copies on the 2.56M
-#                -ray frame).
-#   "smem"     — per-grid-step [SUBTILES, W] slices DMA'd into SMEM: one
-#                launch at any tile count, same scalar-read walk loop.
-#   "vmem"     — per-step sliced VMEM operand (scalar reads from VMEM;
-#                crashed the remote Mosaic compiler when last tried).
-IDS_MODE = "prefetch"
-# >VMEM scenes: walk cluster groups along the inner Pallas grid axis with
-# a sliced block-table operand (auto double-buffered HBM->VMEM streaming,
-# one launch, scratch-carried accumulators — see _gstream_kernel) instead
-# of a python loop of full resident-block launches merged in XLA.
-STREAM_GROUPS = True
-# Group cluster count beyond which the nearest walk enables the batched
-# front-to-back early exit (and the wider visit-list floor kicks in).
-# Round-3 measurement (exp/r3_probe.py, v5e): the exit pays its way even
-# at teapot scale (790 clusters: 852 vs 776 Mrays/s with the pmto
-# variant), because interior tiles with long silhouette lists stop after
-# one batch; tiles with short lists pay at most one (batched) overshoot.
-_EARLY_EXIT_MIN_CLUSTERS = 64
-# Visits fused per early-exit check (the while-loop body unrolls this
-# many `body` trips between scalar exit tests — see the early-exit note
-# in _walk_kernel). Round-3 sweep (exp/r3_sweep.py, v5e): 4 beats 8 and 2
-# on the teapot frame — visit counts average ~2, so an 8-batch overshoots
-# most tiles while 2 checks too often.
-EARLY_EXIT_BATCH = 4
-DEFAULT_VARIANT = "pmt"
+# Rays per walk program and per culling block (a power of two, as Triton
+# requires of the tensors the kernel loads).
+RAY_BLOCK = 128
+# Visit lists are cut to this width by the top_k compaction; a block whose
+# true count is larger scans every cluster (see module docstring).
+MAX_VISITS = 256
+NUM_WARPS = 4
 _TINY = 1e-20
-_BIG_ID = 2 ** 30  # python int: kernels may not capture traced constants
+_BIG_ID = 2 ** 30
+# Relative and absolute inflation of the per-visit slab interval: the
+# intersector's accepted t is rounded along another path than the slab
+# bounds, so the box test is loosened by a few ulp and never rejects a
+# cluster that holds an accepted hit. Loosening only costs work.
+_SLAB_REL = 4e-6
+_SLAB_ABS = 1e-7
 
 
-def _flat_acc_auto(cs, n_attrs):
-    """Whether the walk should reduce each visit to [1, RT] rows
-    (flat_acc) instead of carrying [CS, RT] best planes. The planes are
-    loop-carried VMEM state, re-read + re-written every visit: at
-    cs * (2 + n_attrs) plane-rows that traffic dominates the walk
-    (measured on v5e: the cs=64 4-attr GI walk's time matched the
-    accumulator traffic at VMEM bandwidth, ~6x the intersection FLOPs).
-    Small-cluster attribute-less walks keep the plane form, where the
-    deferred one-shot reduction is cheaper than per-visit reduces."""
-    return cs * (2 + n_attrs) >= 64
-
-
-def _ee_batch_for(cs):
-    """Visits fused per early-exit check, scaled inversely with cluster
-    size: a [CS, RT] visit's VPU cost grows with CS while the exit
-    check's vector->scalar stall is constant, so big clusters check more
-    often (EARLY_EXIT_BATCH is the small-cluster base). Swept on v5e at
-    404k tris (exp/r3_large.py): cs=64 -> 2, cs=128 -> 1."""
-    return max(1, min(EARLY_EXIT_BATCH, 128 // cs))
-
-
-def _on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
+def _require_gpu(interpret: bool) -> None:
+    if not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "the pallas backend's walk kernel compiles for a CUDA GPU only "
+            f"(JAX's default backend is {jax.default_backend()!r}); use "
+            "backend='cluster' or 'bruteforce' here, or pass interpret=True "
+            "to run the kernel in the Pallas interpreter")
 
 
 # ---------------------------------------------------------------------------
-# Phase 1+2: conservative tile-frustum visit lists (pure XLA)
+# Ray pack
 # ---------------------------------------------------------------------------
 
 
-def _extents_kernel(rays_ref, lo_ref, hi_ref, *, rt):
-    """Per-tile masked ray extents — the frustum inputs of phase 1.
+def rays_to_soa(o: jnp.ndarray, d: jnp.ndarray, alive=None,
+                t_max=None) -> jnp.ndarray:
+    """[N, 3] origins/directions -> the SoA ray pack [8, N] with rows
+    (ox oy oz ALIVE dx dy dz T_MAX). Rows load as contiguous [RAY_BLOCK]
+    vectors in the kernel.
 
-    The XLA formulation ([8, N] -> reshape -> per-tile lane-axis min/max)
-    measured 1.7 ms at 2.56 M rays: every reduction's [nt] output forces a
-    sublane->lane relayout. Here each grid step reduces its tiles entirely
-    in registers: one masked [8, RT] min + max per tile (all six o/d
-    quantities reduce together on sublanes), emitted as [1, 8] rows.
-    Rows of lo/hi: (ox oy oz _ dx dy dz ALIVE-count-signal) — slot 7 of
-    `hi` carries the masked max of row 7, so tile_alive = hi[:, 7] > 0."""
-    n_tiles = rays_ref.shape[1] // rt
+    alive: optional [N] bool; dead lanes are left out of culling and may
+    carry garbage rays (their results are meaningless). t_max: optional
+    scalar or [N] bound of occlusion queries (hits must have t < t_max)."""
+    n = o.shape[0]
+    row3 = (jnp.ones((1, n), o.dtype) if alive is None
+            else alive.astype(o.dtype)[None, :])
+    if t_max is None:
+        t_max = INF
+    row7 = jnp.broadcast_to(jnp.asarray(t_max, o.dtype), (n,))[None, :]
+    return jnp.concatenate([o.T, row3, d.T, row7], axis=0)
+
+
+def _pad_rays(rays8: jnp.ndarray, block: int) -> jnp.ndarray:
+    pad = (-rays8.shape[1]) % block
+    if pad:
+        # Padding rays: finite and dead, so padding blocks visit nothing.
+        col = jnp.array([0, 0, 0, 0, 0, 0, 1, 0], rays8.dtype)[:, None]
+        rays8 = jnp.concatenate(
+            [rays8, jnp.broadcast_to(col, (8, pad))], axis=1)
+    return rays8
+
+
+# ---------------------------------------------------------------------------
+# Phase 1 + 2: block-frustum visit lists (XLA)
+# ---------------------------------------------------------------------------
+
+
+def _tile_extents(rays8: jnp.ndarray, block: int):
+    """Masked per-block min/max of every pack row over ALIVE lanes:
+    (lo [nt, 8], hi [nt, 8], any_alive [nt])."""
+    nt = rays8.shape[1] // block
+    r = rays8.reshape(8, nt, block)
+    alive = r[3] != 0.0
     big = jnp.float32(3e38)
-    for t in range(n_tiles):
-        rows = rays_ref[:, t * rt:(t + 1) * rt]  # [8, RT]
-        alive = rows[7:8, :] != 0.0  # [1, RT] broadcasts over sublanes
-        m_lo = jnp.where(alive, rows, big)
-        m_hi = jnp.where(alive, rows, -big)
-        lo_ref[t:t + 1, :] = jnp.min(m_lo, axis=1, keepdims=True).reshape(1, 8)
-        hi_ref[t:t + 1, :] = jnp.max(m_hi, axis=1, keepdims=True).reshape(1, 8)
+    lo = jnp.where(alive[None], r, big).min(axis=2).T
+    hi = jnp.where(alive[None], r, -big).max(axis=2).T
+    return lo, hi, jnp.any(alive, axis=1)
 
 
-def _tile_extents_pallas(rays8, rt, interpret):
-    """[8, N] SoA ray pack -> (lo [nt, 8], hi [nt, 8]) masked per-tile
-    extents (see _extents_kernel)."""
-    n = rays8.shape[1]
-    nt = n // rt
-    tiles_per_step = min(nt, 32)
-    grid = nt // tiles_per_step
-    rem = nt - grid * tiles_per_step
-    kern = functools.partial(_extents_kernel, rt=rt)
-    out = pl.pallas_call(
-        kern,
-        grid=(grid,),
-        in_specs=[pl.BlockSpec((8, tiles_per_step * rt), lambda i: (0, i))],
-        out_specs=[
-            pl.BlockSpec((tiles_per_step, 8), lambda i: (i, 0)),
-            pl.BlockSpec((tiles_per_step, 8), lambda i: (i, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((grid * tiles_per_step, 8), jnp.float32),
-            jax.ShapeDtypeStruct((grid * tiles_per_step, 8), jnp.float32),
-        ],
-        interpret=interpret,
-    )(rays8[:, :grid * tiles_per_step * rt])
-    lo, hi = out
-    if rem:
-        # Tail tiles (ray counts not divisible by 32 tiles) via the XLA
-        # fallback — small, and only non-default chunk sizes hit it.
-        r = rays8[:, grid * tiles_per_step * rt:].reshape(8, rem, rt)
-        a = r[7] != 0.0
-        big = jnp.float32(3e38)
-        mlo = jnp.where(a[None], r, big).min(axis=2).T  # [rem, 8]
-        mhi = jnp.where(a[None], r, -big).max(axis=2).T
-        lo = jnp.concatenate([lo, mlo], axis=0)
-        hi = jnp.concatenate([hi, mhi], axis=0)
-    return lo, hi
+def visit_lists(rays8: jnp.ndarray, cluster_min: jnp.ndarray,
+                cluster_max: jnp.ndarray, block: int = RAY_BLOCK,
+                max_visits: Optional[int] = None):
+    """Front-to-back visit lists of every walk block (phases 1-2).
 
-
-def _supertile_group(c):
-    """Phase-2 row-pooling factor for a c-cluster set (see
-    _PHASE2_SUPERTILE)."""
-    if _PHASE2_SUPERTILE > 1 and c > _SUPERTILE_MIN_C:
-        return _PHASE2_SUPERTILE
-    return 1
-
-
-def _tile_visit_lists_soa(rays8, cluster_min, cluster_max, rt,
-                          interpret=False, t_cap=None, extra_mask=None):
-    """Visit lists from the SoA ray pack [8, N] (rows ox oy oz 1 dx dy dz
-    ALIVE). The per-tile frustum is computed over ALIVE lanes only (row 7
-    != 0): dead lanes — padding, children of miss parents, zero-weight
-    paths — carry arbitrary garbage o/d that would otherwise widen a mixed
-    tile's frustum to the whole scene. An all-dead tile gets cnt = 0 and
-    costs one empty grid step. Extents come from the small Pallas
-    reduction kernel (_extents_kernel).
-
-    NOTE: no supertile pooling on this path — it serves ARBITRARY ray
-    batches, where consecutive tiles carry no spatial-adjacency
-    guarantee. The primary pack's raster block order wraps across screen
-    rows: a pooled run spanning the wrap gets a screen-wide frustum
-    (measured: 4% of tiles overflowing to full-scene scans at 404k
-    tris). Camera mode pools 2-D block neighborhoods instead
-    (nearest_hit_camera_soa)."""
-    lo, hi = _tile_extents_pallas(rays8, rt, interpret)
+    Returns (ids [nt, W] i32, cnt [nt] i32): the clusters whose AABB the
+    block's interval frustum may enter, ordered by entry lower bound, cut
+    to W = min(C, max_visits or MAX_VISITS); cnt is the TRUE count (the
+    kernel scans all clusters where cnt > W). Blocks with no alive ray get
+    cnt = 0."""
+    lo, hi, any_alive = _tile_extents(rays8, block)
     o_lo, o_hi = lo[:, 0:3], hi[:, 0:3]
     d_lo, d_hi = lo[:, 4:7], hi[:, 4:7]
-    ids, tnear, cnt = _visit_lists_from_extents(o_lo, o_hi, d_lo, d_hi,
-                                                cluster_min, cluster_max,
-                                                t_cap=t_cap,
-                                                extra_mask=extra_mask)
-    tile_alive = hi[:, 7] > 0.0
-    cnt = jnp.where(tile_alive, cnt, 0)
-    return ids, tnear, cnt
-
-
-# Two-level phase 1: above this cluster count, interval-test tile frustums
-# against SUPERCELLS (groups of _SUPERCELL_G consecutive clusters — the
-# median-split order makes consecutive runs spatially compact) and expand
-# the surviving supercells to their member clusters arithmetically. Cuts
-# the dense [tiles, C] interval math and the width-C top_k to [tiles, S]
-# at S = C/G, at the price of coarser selection (every member of a hit
-# supercell is walked; the in-kernel front-to-back early exit prunes the
-# excess). Set _SUPERCELL_MIN_C = None to disable.
-#
-# DISABLED by default since round 3: the x8 walk inflation was the 404k-
-# triangle collapse (diag_large: cs=64 supercell lists average 67 entries
-# = 4,295 tri tests/ray where exact cluster lists average ~8). Exact
-# cluster-level lists + supertile-pooled phase 2 (_PHASE2_SUPERTILE) +
-# the batched front-to-back early exit replace it at every scale.
-_SUPERCELL_MIN_C = None
-_SUPERCELL_G = 8
-
-# Phase 2 row pooling: above this cluster count, visit lists are computed
-# per SUPERTILE (_PHASE2_SUPERTILE consecutive culling tiles sharing one
-# pooled frustum) and repeated back to per-tile rows. The top_k over
-# [tiles, C] rows is phase 2's dominant cost at large C; pooling divides
-# its row count by the group size while the slightly wider shared frustum
-# only lengthens each list a little (adjacent 16x16-pixel blocks see
-# nearly the same clusters). Lists remain exact supersets per tile and
-# stay entry-t ordered, so the walk and its early exit are unchanged.
-_PHASE2_SUPERTILE = 4
-_SUPERTILE_MIN_C = 2048
-
-
-def _visit_lists_from_extents(o_lo, o_hi, d_lo, d_hi, cluster_min,
-                              cluster_max, t_cap=None, extra_mask=None,
-                              width_floor=None):
-    c = cluster_min.shape[0]
-    if _SUPERCELL_MIN_C is not None and c > _SUPERCELL_MIN_C:
-        g = _SUPERCELL_G
-        pad = (-c) % g
-        big = jnp.float32(3e38)
-        cmin, cmax = cluster_min, cluster_max
-        if pad:
-            # Inverted boxes: padding members can only appear inside a
-            # real supercell's tail and are clamped to c-1 below.
-            cmin = jnp.concatenate([cmin, jnp.full((pad, 3), big)], axis=0)
-            cmax = jnp.concatenate([cmax, jnp.full((pad, 3), -big)], axis=0)
-        s = cmin.shape[0] // g
-        sc_min = cmin.reshape(s, g, 3).min(axis=1)
-        sc_max = jnp.where(
-            cmax.reshape(s, g, 3).max(axis=1) < cmin.reshape(s, g, 3)
-            .min(axis=1), -big, cmax.reshape(s, g, 3).max(axis=1))
-        ids_s, tnear_s, cnt_s = _visit_lists_single(
-            o_lo, o_hi, d_lo, d_hi, sc_min, sc_max, t_cap=t_cap,
-            entry_cost=g)
-        nt, ws = ids_s.shape
-        member = jax.lax.broadcasted_iota(jnp.int32, (nt, ws, g), 2)
-        ids = jnp.minimum(ids_s[:, :, None] * g + member, c - 1)
-        ids = ids.reshape(nt, ws * g)
-        # Member entry-t = the supercell's entry lower bound: still a
-        # valid per-cluster lower bound, so the kernel's front-to-back
-        # early exit stays exact.
-        tnear = jnp.broadcast_to(tnear_s[:, :, None],
-                                 (nt, ws, g)).reshape(nt, ws * g)
-        return ids.astype(jnp.int32), tnear, cnt_s * g
-    return _visit_lists_single(o_lo, o_hi, d_lo, d_hi, cluster_min,
-                               cluster_max, t_cap=t_cap,
-                               extra_mask=extra_mask,
-                               width_floor=width_floor)
-
-
-def _visit_lists_single(o_lo, o_hi, d_lo, d_hi, cluster_min,
-                        cluster_max, t_cap=None, entry_cost=1,
-                        extra_mask=None, width_floor=None):
-    # All arrays here are kept 2-D [nt, C] (clusters on the lane axis) by
-    # unrolling the xyz loop in Python: a fused [nt, C, 3] formulation pads
-    # its minor dim 3 -> 128 in every materialized intermediate (measured
-    # ~10x slower at C=791).
-    t_near_lb = None
-    t_far_ub = None
+    t_near_lb = t_far_ub = None
     for k in range(3):
         spans0 = (d_lo[:, k] <= 0.0) & (d_hi[:, k] >= 0.0)  # [nt]
         dl = jnp.where(jnp.abs(d_lo[:, k]) < _TINY, _TINY, d_lo[:, k])
@@ -348,2042 +166,227 @@ def _visit_lists_single(o_lo, o_hi, d_lo, d_hi, cluster_min,
         t_max_ax = jnp.where(unb, INF, t_max_ax)
         t_near_lb = t_min_ax if k == 0 else jnp.maximum(t_near_lb, t_min_ax)
         t_far_ub = t_max_ax if k == 0 else jnp.minimum(t_far_ub, t_max_ax)
-    if t_cap is not None:
-        # Capped query: clusters entirely beyond t_cap can never yield an
-        # accepted hit (the intersector enforces t < t_cap), so clip the
-        # frustum — an incoherent tile's frustum collapses from "the whole
-        # scene along a hemisphere" to a cap-sized neighborhood.
-        t_far_ub = jnp.minimum(t_far_ub, jnp.float32(t_cap))
-    flags = (t_near_lb <= t_far_ub) & (t_far_ub >= 0.0)
-    if extra_mask is not None:
-        # Dense per-ray ENTERED mask [nt, C] (see _refine_dense) — ANDed
-        # before compaction, so one top_k serves hull culling AND the
-        # refinement with no gather anywhere.
-        flags = flags & extra_mask
-    # FRONT-TO-BACK visit lists in one shot: top_k of the negated entry-t
-    # keys compacts the flagged clusters AND orders them by entry lower
-    # bound (unflagged clusters carry +inf keys and sort to the back,
-    # beyond cnt). top_k at the final width beats a full argsort of all C
-    # clusters (~25% of the sort's cost at C=791) and its output is
-    # already visit-list-sized for the SMEM prefetch.
-    #
-    # ADAPTIVE WIDTH: the width floor is _MAX_VISITS, but when the batch
-    # has few tiles (bounce levels: a 360k-ray level is only ~350 tiles)
-    # the same SMEM budget affords much wider lists — incoherent GI tiles
-    # whose frustum touches hundreds of clusters then keep REAL visit
-    # lists instead of tripping the kernel's overflow full-scan
-    # (C tests/ray instead of cnt).
+    # A cluster entered only beyond every live ray's t_max holds no
+    # accepted hit (row 7 of the pack).
+    t_far_ub = jnp.minimum(t_far_ub, hi[:, 7:8])
+    flags = (t_near_lb <= t_far_ub) & (t_far_ub >= 0.0) & any_alive[:, None]
     keys = jnp.where(flags, t_near_lb, INF)
-    nt, c = keys.shape
-    # Width floor: _MAX_VISITS for small scenes; for LARGE cluster counts
-    # the overflow fallback costs C tests per overflowing tile (at 404k
-    # triangles, 1.2%% of tiles overflowing a 128-wide list was ~80%% of
-    # the whole traversal), so buy wider lists even when it forces
-    # chunked launches.
-    floor = _MAX_VISITS if c * entry_cost <= 2048 else 3 * _MAX_VISITS
-    if width_floor is not None:
-        # Caller knows wider lists are cheap for its launch mode (camera
-        # mode: per-step SMEM slices, no whole-array residency) and that
-        # overflow full-scans are catastrophic at its cluster count.
-        floor = width_floor
-    # entry_cost > 1 (supercell mode): every selected id expands to
-    # entry_cost list entries downstream, so both the floor and the SMEM
-    # budget are expressed in FINAL entries and divided back down here.
-    width = min(c, max(floor // entry_cost,
-                       _SMEM_IDS_BUDGET_BYTES
-                       // (4 * max(nt, 1) * entry_cost) // 8 * 8))
-    neg, ids = jax.lax.top_k(-keys, width)
+    width = min(cluster_min.shape[0], max_visits or MAX_VISITS)
+    _, ids = jax.lax.top_k(-keys, width)
     cnt = jnp.sum(flags, axis=1, dtype=jnp.int32)
-    return ids.astype(jnp.int32), -neg, cnt
+    return ids.astype(jnp.int32), cnt
 
 
-def _per_ray_refine(rp, ids, tnear, cnt, cluster_min, cluster_max,
-                    ray_tile, c_total):
-    """Phase 2.5: refine each tile's frustum-hull visit list to the
-    clusters ANY of its actual (alive) rays enters — dense XLA, no
-    per-visit control flow. A GI tile's interval frustum genuinely
-    overlaps ~90 of 198 clusters while its 1024 sampled rays enter only
-    ~34 (directions fan within the cone; each ray is a thin line), and
-    no frustum refinement recovers that (64-ray sub-frustums still flag
-    ~90 — measured, exp/NOTES_r4_gi.md). The in-kernel lax.cond variant
-    of this test costs ~2 us/visit in Mosaic (slower than the visits it
-    skips); here the same slab math runs as one fused [tiles, W, RT]
-    elementwise pass (~2e9 flops at GI scale), then a packed
-    (quantized-entry-t | id) top_k restores front-to-back order.
+# ---------------------------------------------------------------------------
+# Phase 3: the walk (Pallas, Triton route)
+# ---------------------------------------------------------------------------
 
-    Exactness: a candidate is kept iff >= 1 alive lane's slab test
-    passes, with the bounds inflated a few ulp (same guard as the
-    kernel's intersectors can't accept a hit outside its cluster's
-    inflated slab interval). Quantizing entry-t truncates mantissa low
-    bits — still a valid LOWER bound, so the walk's early exit stays
-    exact. Tiles whose original cnt exceeded the list width keep their
-    overflow marker (the kernel full-scans them).
 
-    Returns (ids2, tnear2, cnt2) with the same shapes/contract as
-    `_visit_lists_from_extents`."""
-    nt, w = ids.shape
-    rt = ray_tile
-    o_rows = rp[0:3].reshape(3, nt, 1, rt)
-    d_rows = rp[4:7].reshape(3, nt, 1, rt)
-    alive = (rp[7].reshape(nt, 1, rt) != 0.0)
-    cm = jnp.take(cluster_min, ids.reshape(-1), axis=0).reshape(nt, w, 3)
-    cx = jnp.take(cluster_max, ids.reshape(-1), axis=0).reshape(nt, w, 3)
+def _walk_kernel(cnt_ref, ids_ref, bounds_ref, tri_ref, rays_ref, *out_refs,
+                 cluster_size, n_clusters, width, eps, nearest):
+    """One program = one block of rays, walking its visit list.
 
-    # Chunk tiles through lax.map so the [bt, W, RT] broadcasts stay
-    # inside a VMEM-friendly footprint at any tile count.
-    bt = max(1, min(nt, (1 << 22) // (w * rt) or 1))
-    nb = -(-nt // bt)
-    pad_t = nb * bt - nt
-    if pad_t:
-        z3 = jnp.zeros((3, pad_t, 1, rt), rp.dtype)
-        o_rows = jnp.concatenate([o_rows, z3], axis=1)
-        d_rows = jnp.concatenate([d_rows, z3], axis=1)
-        alive = jnp.concatenate(
-            [alive, jnp.zeros((pad_t, 1, rt), bool)], axis=0)
-        cm = jnp.concatenate([cm, jnp.zeros((pad_t, w, 3))], axis=0)
-        cx = jnp.concatenate([cx, jnp.zeros((pad_t, w, 3))], axis=0)
+    cnt_ref [1], ids_ref [1, W]: the block's true visit count and list;
+    bounds_ref [C, 8]: cluster AABB rows (min xyz, max xyz, 0, 0);
+    tri_ref [C, 9, CS]: v0 | e1 | e2 rows, triangles along the last axis;
+    rays_ref [8, RB]: the block's ray pack (see rays_to_soa).
+    Outputs [RB]: nearest -> best t and packed slot; occlusion ->
+    occluded 0/1."""
+    cs = cluster_size
+    ox, oy, oz = rays_ref[0, :], rays_ref[1, :], rays_ref[2, :]
+    alive = rays_ref[3, :] != 0.0
+    dx, dy, dz = rays_ref[4, :], rays_ref[5, :], rays_ref[6, :]
+    t_max = rays_ref[7, :]
+    # Reciprocal direction for the slab test; near-zero components are
+    # clamped as in accel.packets._cluster_scan (0 * inf would be NaN).
+    inv = tuple(1.0 / jnp.where(jnp.abs(c) < _TINY, _TINY, c)
+                for c in (dx, dy, dz))
+    org = (ox, oy, oz)
+    # Column forms [RB, 1] for the [RB, CS] intersection tile.
+    oxc, oyc, ozc = ox[:, None], oy[:, None], oz[:, None]
+    dxc, dyc, dzc = dx[:, None], dy[:, None], dz[:, None]
+    lane = jax.lax.broadcasted_iota(jnp.int32, (1, cs), 1)
 
-    def block(args):
-        ob, db, ab, cmb, cxb = args
-        tn = None
-        tf = None
+    def any_(x):  # Triton lowers no boolean reductions
+        return jnp.max(x.astype(jnp.int32)) > 0
+
+    cnt = cnt_ref[0]
+    overflow = cnt > width
+    trips = jnp.where(overflow, n_clusters, cnt)
+
+    def cluster_at(j):
+        return jnp.where(overflow, j, ids_ref[0, jnp.minimum(j, width - 1)])
+
+    def enters(cid, limit):
+        """[RB] bool: the ray's slab interval meets the cluster AABB below
+        `limit` (inflated a few ulp, see _SLAB_REL)."""
+        tn = tf = None
         for k in range(3):
-            dk = db[k]  # [bt, 1, RT]
-            ok_ = ob[k]
-            deg = jnp.abs(dk) < _TINY
-            dsafe = jnp.where(deg, _TINY, dk)
-            t1 = (cmb[:, :, k:k + 1] - ok_) / dsafe  # [bt, W, RT]
-            t2 = (cxb[:, :, k:k + 1] - ok_) / dsafe
-            lo_ = jnp.where(deg, -INF, jnp.minimum(t1, t2))
-            hi_ = jnp.where(deg, INF, jnp.maximum(t1, t2))
+            t1 = (bounds_ref[cid, k] - org[k]) * inv[k]
+            t2 = (bounds_ref[cid, k + 3] - org[k]) * inv[k]
+            lo_, hi_ = jnp.minimum(t1, t2), jnp.maximum(t1, t2)
             tn = lo_ if k == 0 else jnp.maximum(tn, lo_)
             tf = hi_ if k == 0 else jnp.minimum(tf, hi_)
-        tf = tf + (jnp.abs(tf) * 2e-6 + 1e-7)
-        tn = tn - (jnp.abs(tn) * 2e-6 + 1e-7)
-        return jnp.any((tn <= tf) & (tf >= 0.0) & ab, axis=2)  # [bt, W]
+        tn = tn - (jnp.abs(tn) * _SLAB_REL + _SLAB_ABS)
+        tf = tf + (jnp.abs(tf) * _SLAB_REL + _SLAB_ABS)
+        return alive & (tn <= jnp.minimum(tf, limit)) & (tf >= 0.0)
+
+    def tri_t(cid, limit):
+        """[RB, CS] Möller–Trumbore t (+inf where rejected), in the
+        operation order of ops/intersect.moller_trumbore."""
+        def row(k):
+            return tri_ref[cid, k, :][None, :]
+
+        v0x, v0y, v0z = row(0), row(1), row(2)
+        e1x, e1y, e1z = row(3), row(4), row(5)
+        e2x, e2y, e2z = row(6), row(7), row(8)
+        px = dyc * e2z - dzc * e2y
+        py = dzc * e2x - dxc * e2z
+        pz = dxc * e2y - dyc * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        ok = jnp.abs(det) >= eps
+        inv_det = 1.0 / jnp.where(ok, det, 1.0)
+        sx, sy, sz = oxc - v0x, oyc - v0y, ozc - v0z
+        u = (sx * px + sy * py + sz * pz) * inv_det
+        qx = sy * e1z - sz * e1y
+        qy = sz * e1x - sx * e1z
+        qz = sx * e1y - sy * e1x
+        v = (dxc * qx + dyc * qy + dzc * qz) * inv_det
+        t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+        valid = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > eps))
+        if limit is not None:
+            valid = valid & (t < limit)
+        return jnp.where(valid, t, INF)
 
-    hit_any = jax.lax.map(
-        block,
-        (o_rows.reshape(3, nb, bt, 1, rt).transpose(1, 0, 2, 3, 4),
-         d_rows.reshape(3, nb, bt, 1, rt).transpose(1, 0, 2, 3, 4),
-         alive.reshape(nb, bt, 1, rt),
-         cm.reshape(nb, bt, w, 3),
-         cx.reshape(nb, bt, w, 3)),
-    ).reshape(nb * bt, w)[:nt]
-
-    # Candidate j is live iff inside the original list AND some lane
-    # enters it. (Positions past cnt carry top_k tail garbage ids.)
-    in_list = (jax.lax.broadcasted_iota(jnp.int32, (nt, w), 1)
-               < jnp.minimum(cnt, w)[:, None])
-    keep = hit_any & in_list
-    # Packed (quantized entry-t | id) selection — same trick as the
-    # camera supertile refine: one top_k yields compacted ids AND keeps
-    # the front-to-back order the early exit relies on.
-    idbits = max(1, (c_total - 1).bit_length())
-    mask_lo = (1 << idbits) - 1
-    keys = jnp.where(keep, jnp.clip(tnear, 0.0, 3e38), INF)
-    bits = jax.lax.bitcast_convert_type(keys, jnp.int32)
-    packed = (bits & ~mask_lo) | ids
-    negp, _ = jax.lax.top_k(-packed, w)
-    packed_s = -negp
-    ids2 = packed_s & mask_lo
-    tnear2 = jax.lax.bitcast_convert_type(packed_s & ~mask_lo, jnp.float32)
-    cnt2 = jnp.sum(keep, axis=1, dtype=jnp.int32)
-    # Overflow tiles (cnt > width): the original list was already
-    # incomplete — preserve the overflow so the kernel full-scans.
-    cnt2 = jnp.where(cnt > w, cnt, cnt2)
-    return ids2.astype(jnp.int32), tnear2, cnt2
-
-
-def _refine_kernel(rays_ref, cand_ref, *refs, rt, t_cap,
-                   has_alive=False):
-    """Pallas twin of `_per_ray_refine`'s slab math: per (tile, candidate)
-    ENTERED bit — 1 iff any ALIVE lane of the tile enters the candidate's
-    AABB. Everything lives in registers/VMEM for the step, so unlike the
-    XLA formulation the [RT, W] intermediates never touch HBM (the reason
-    the round-4 "refine" mode lost 0.4 s in frame context despite tying in
-    isolated timings).
-
-    Layout: candidates on LANES, rays on SUBLANES — the transpose of the
-    walk kernel, because here the reduction runs over rays. rays_ref
-    [8, S*RT] (SoA rows); cand_ref [S, 8, WP] with rows (cmin xyz,
-    cmax xyz, pad, pad) — invalid list positions arrive as INVERTED boxes
-    (min=+big, max=-big) so the slab test fails them with no extra mask;
-    out_ref [S, WP] i32. Bounds inflated like lane_cull_cond (same
-    empirical rounding guard, same gi_lane_cull=False escape hatch)."""
-    alive_ref = refs[0] if has_alive else None
-    out_ref = refs[-1]
-    s_count = rays_ref.shape[1] // rt
-    for s in range(s_count):
-        def slab(s=s):
-            rows = rays_ref[:, s * rt:(s + 1) * rt]
-            # Dense mode (_refine_dense) shares ONE candidate block —
-            # the whole cluster table — across every subtile.
-            cand = cand_ref[s if cand_ref.shape[0] > 1 else 0]  # [8, WP]
-            alive = jnp.reshape(rows[7:8, :], (rt, 1)) != 0.0
-            tn = None
-            tf = None
-            for k in range(3):
-                d = jnp.reshape(rows[4 + k:5 + k, :], (rt, 1))
-                o = jnp.reshape(rows[k:k + 1, :], (rt, 1))
-                deg = jnp.abs(d) < _TINY
-                inv = 1.0 / jnp.where(deg, _TINY, d)
-                t1 = (cand[k:k + 1, :] - o) * inv      # [RT, WP]
-                t2 = (cand[k + 3:k + 4, :] - o) * inv
-                lo_ = jnp.where(deg, -INF, jnp.minimum(t1, t2))
-                hi_ = jnp.where(deg, INF, jnp.maximum(t1, t2))
-                tn = lo_ if k == 0 else jnp.maximum(tn, lo_)
-                tf = hi_ if k == 0 else jnp.minimum(tf, hi_)
-            tf = tf + (jnp.abs(tf) * 2e-6 + 1e-7)
-            tn = tn - (jnp.abs(tn) * 2e-6 + 1e-7)
-            if t_cap is not None:
-                # Capped query: a candidate entirely beyond t_cap can
-                # never yield an accepted hit (the intersector enforces
-                # t < t_cap).
-                tf = jnp.minimum(tf, jnp.float32(t_cap))
-            enter = (tn <= tf) & (tf >= 0.0) & alive
-            out_ref[s:s + 1, :] = jnp.any(enter, axis=0, keepdims=True
-                                          ).astype(jnp.int32)
-        if alive_ref is None:
-            slab()
-        else:
-            # Dead-tile skip on a PREFETCHED scalar (no vector->scalar
-            # stall): sky chunks' bounce levels are all-dead, and the
-            # full [RT, WP] slab per dead tile was most of the dense
-            # refine's in-frame cost (6 refined queries x 40 chunks).
-            @pl.when(alive_ref[s, 0] > 0)
-            def _(s=s):
-                slab()
-
-            @pl.when(alive_ref[s, 0] == 0)
-            def _(s=s):
-                out_ref[s:s + 1, :] = jnp.zeros(
-                    (1, out_ref.shape[1]), jnp.int32)
-
-
-# Cluster-count ceiling for the DENSE (gather-free) per-ray refinement:
-# above it the [RT, C] slab pass outgrows VMEM/compute and the
-# candidate-gather form (_lane_refine_lists) takes over.
-_REFINE_DENSE_MAX_C = 512
-
-
-def _refine_dense(rp, cluster_min, cluster_max, ray_tile, interpret,
-                  t_cap=None, tile_alive=None):
-    """Per-ray ENTERED bits for EVERY cluster — the gather-free sibling of
-    `_lane_refine_lists` for small cluster sets. The candidate operand is
-    the whole AABB table as one constant [8, Cp] block (rows cmin xyz |
-    cmax xyz | pad), identical for every tile, so there is NO per-tile
-    candidate gather: the round-5 frame measurement showed the gathered
-    form's per-query `jnp.take` (serial on TPU) eating the walk's whole
-    win at 6 refined queries per chunk. Returns [nt, C] bool."""
-    n = rp.shape[1]
-    nt = n // ray_tile
-    c = cluster_min.shape[0]
-    cp = -(-c // 128) * 128
-    big = jnp.float32(3e38)
-    cand = jnp.concatenate(
-        [cluster_min.T, cluster_max.T, jnp.zeros((2, c), jnp.float32)],
-        axis=0)  # [8, C]
-    if cp > c:
-        fill = jnp.broadcast_to(
-            jnp.array([big] * 3 + [-big] * 3 + [0.0, 0.0],
-                      jnp.float32)[:, None], (8, cp - c))
-        cand = jnp.concatenate([cand, fill], axis=1)
-    s_count = SUBTILES if nt % SUBTILES == 0 else 1
-    kern = functools.partial(_refine_kernel, rt=ray_tile, t_cap=t_cap,
-                             has_alive=tile_alive is not None)
-    in_specs = [
-        pl.BlockSpec((8, s_count * ray_tile), lambda i: (0, i)),
-        pl.BlockSpec((1, 8, cp), lambda i: (0, 0, 0)),
-    ]
-    operands = [rp[:, :n], cand[None]]
-    if tile_alive is not None:
-        in_specs.append(pl.BlockSpec((s_count, 1), lambda i: (i, 0),
-                                     memory_space=pltpu.SMEM))
-        operands.append(tile_alive.astype(jnp.int32)[:, None])
-    entered = pl.pallas_call(
-        kern,
-        grid=(nt // s_count,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((s_count, cp), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((nt, cp), jnp.int32),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024),
-    )(*operands)
-    return entered[:, :c] > 0
-
-
-def _lane_refine_lists(rp, ids, tnear, cnt, cluster_min, cluster_max,
-                       ray_tile, c_total, interpret, t_cap=None):
-    """Refine frustum-hull visit lists to the clusters ANY alive ray of
-    the tile actually enters (see `_refine_kernel`), recompacted
-    front-to-back with the packed (quantized-entry-t | id) top_k trick.
-    Same contract as `_visit_lists_from_extents`; overflow tiles
-    (cnt > width) keep their overflow marker. This is the list-shortening
-    sibling of the in-kernel lane_cull cond: instead of SKIPPING listed
-    non-entered visits per trip, they never reach the walk at all — the
-    work-queue walk depends on it (its step capacity prices off list
-    length, not cond skips)."""
-    nt, w = ids.shape
-    wp = -(-w // 128) * 128
-    big = jnp.float32(3e38)
-    cm = jnp.take(cluster_min, ids.reshape(-1), axis=0).reshape(nt, w, 3)
-    cx = jnp.take(cluster_max, ids.reshape(-1), axis=0).reshape(nt, w, 3)
-    in_list = (jax.lax.broadcasted_iota(jnp.int32, (nt, w), 1)
-               < jnp.minimum(cnt, w)[:, None])[..., None]
-    cm = jnp.where(in_list, cm, big)   # inverted box: never entered
-    cx = jnp.where(in_list, cx, -big)
-    pad2 = jnp.zeros((nt, 2, w), jnp.float32)
-    cand = jnp.concatenate(
-        [cm.transpose(0, 2, 1), cx.transpose(0, 2, 1), pad2],
-        axis=1)  # [nt, 8, w] rows cmin xyz | cmax xyz | pad
-    if wp > w:
-        fill = jnp.broadcast_to(
-            jnp.array([big] * 3 + [-big] * 3 + [0.0, 0.0],
-                      jnp.float32)[None, :, None], (nt, 8, wp - w))
-        cand = jnp.concatenate([cand, fill], axis=2)
-    s_count = SUBTILES if nt % SUBTILES == 0 else 1
-    kern = functools.partial(_refine_kernel, rt=ray_tile, t_cap=t_cap)
-    entered = pl.pallas_call(
-        kern,
-        grid=(nt // s_count,),
-        in_specs=[
-            pl.BlockSpec((8, s_count * ray_tile), lambda i: (0, i)),
-            pl.BlockSpec((s_count, 8, wp), lambda i: (i, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((s_count, wp), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((nt, wp), jnp.int32),
-        interpret=interpret,
-    )(rp[:, :nt * ray_tile], cand)
-    keep = entered[:, :w] > 0
-    # Packed (quantized entry-t | id) selection: one top_k recompacts AND
-    # keeps front-to-back order (see _per_ray_refine for the exactness
-    # argument — truncated entry-t stays a valid lower bound).
-    idbits = max(1, (c_total - 1).bit_length())
-    mask_lo = (1 << idbits) - 1
-    keys = jnp.where(keep, jnp.clip(tnear, 0.0, 3e38), INF)
-    bits = jax.lax.bitcast_convert_type(keys, jnp.int32)
-    packed = (bits & ~mask_lo) | ids
-    negp, _ = jax.lax.top_k(-packed, w)
-    packed_s = -negp
-    ids2 = packed_s & mask_lo
-    tnear2 = jax.lax.bitcast_convert_type(packed_s & ~mask_lo, jnp.float32)
-    cnt2 = jnp.sum(keep, axis=1, dtype=jnp.int32)
-    cnt2 = jnp.where(cnt > w, cnt, cnt2)
-    return ids2.astype(jnp.int32), tnear2, cnt2
-
-
-# ---------------------------------------------------------------------------
-# Phase 3: the walk kernel
-# ---------------------------------------------------------------------------
-
-
-def _mt_tile(o, d, blk, eps, t_limit=None):
-    """Möller–Trumbore of the ray tile against one cluster block — the
-    lane-parallel sibling of simd_accel.rs:282-331, in the kernel's
-    transposed layout: o/d are tuples of [1, RT] rows (rays on lanes), blk
-    is [9, CS] whose rows are reshaped to [CS, 1] columns (triangles on
-    sublanes), every product is an outer-product broadcast [CS, RT].
-    Returns t [CS, RT], +inf on miss."""
-    ox, oy, oz = o
-    dx, dy, dz = d
-    cs = blk.shape[1]
-
-    def col(k):
-        return jnp.reshape(blk[k:k + 1, :], (cs, 1))
-
-    v0x, v0y, v0z = col(0), col(1), col(2)
-    e1x, e1y, e1z = col(3), col(4), col(5)
-    e2x, e2y, e2z = col(6), col(7), col(8)
-    px = dy * e2z - dz * e2y
-    py = dz * e2x - dx * e2z
-    pz = dx * e2y - dy * e2x
-    det = e1x * px + e1y * py + e1z * pz
-    inv = 1.0 / det
-    sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
-    u = (sx * px + sy * py + sz * pz) * inv
-    qx = sy * e1z - sz * e1y
-    qy = sz * e1x - sx * e1z
-    qz = sx * e1y - sy * e1x
-    v = (dx * qx + dy * qy + dz * qz) * inv
-    t = (e2x * qx + e2y * qy + e2z * qz) * inv
-    valid = (
-        (jnp.abs(det) >= eps)
-        & (u >= 0.0)
-        & (v >= 0.0)
-        & (u + v <= 1.0)
-        & (t > eps)
-    )
-    if t_limit is not None:
-        valid = valid & (t < t_limit)
-    return jnp.where(valid, t, INF)
-
-
-def _pmt_tile(o, d, blk, eps, t_limit=None):
-    """Baldwin–Weber precomputed-form intersection in the transposed
-    layout: o/d are tuples of [1, RT] rows, blk [12, CS] (rows n, d0, U,
-    u0, V, v0c — see accel.packets). ~30% fewer VPU ops than `_mt_tile`:
-    t from one plane dot, u/v from two dots of the SHARED hit point — the
-    per-ray cross products vanish into the build-time precompute. Exact
-    f32 like MT (one extra rounding through the t division).
-    Returns t [CS, RT], +inf on miss."""
-    ox, oy, oz = o
-    dx, dy, dz = d
-    cs = blk.shape[1]
-
-    def col(k):
-        return jnp.reshape(blk[k:k + 1, :], (cs, 1))
-
-    nx, ny, nz, d0 = col(0), col(1), col(2), col(3)
-    ux, uy, uz, u0 = col(4), col(5), col(6), col(7)
-    vx, vy, vz, v0c = col(8), col(9), col(10), col(11)
-    den = nx * dx + ny * dy + nz * dz            # [CS, RT]
-    t = (d0 - (nx * ox + ny * oy + nz * oz)) / den
-    px = ox + t * dx
-    py = oy + t * dy
-    pz = oz + t * dz
-    u = ux * px + uy * py + uz * pz + u0
-    v = vx * px + vy * py + vz * pz + v0c
-    valid = (
-        (jnp.abs(den) >= eps)
-        & (u >= 0.0)
-        & (v >= 0.0)
-        & (u + v <= 1.0)
-        & (t > eps)
-    )
-    if t_limit is not None:
-        valid = valid & (t < t_limit)
-    return jnp.where(valid, t, INF)
-
-
-def _pmt_t_tile(o, d, blk, eps, t_limit=None):
-    """Baldwin–Weber intersection from the TRANSPOSED block layout: blk
-    [CS, 12] with triangles on sublanes and quantity columns on lanes.
-    Math identical to `_pmt_tile`; the difference is pure layout — each
-    per-quantity operand is a lane slice `blk[:, k:k+1]`, already the
-    native [CS, 1] sublane column the outer-product broadcast wants. The
-    row-major layout needed a [1, CS] -> [CS, 1] RESHAPE (a sublane<->lane
-    transpose) per quantity per visit; those 12 transposes measured as the
-    bulk of the per-visit fixed cost on v5e."""
-    ox, oy, oz = o
-    dx, dy, dz = d
-
-    def col(k):
-        return blk[:, k:k + 1]
-
-    nx, ny, nz, d0 = col(0), col(1), col(2), col(3)
-    ux, uy, uz, u0 = col(4), col(5), col(6), col(7)
-    vx, vy, vz, v0c = col(8), col(9), col(10), col(11)
-    den = nx * dx + ny * dy + nz * dz            # [CS, RT]
-    t = (d0 - (nx * ox + ny * oy + nz * oz)) / den
-    px = ox + t * dx
-    py = oy + t * dy
-    pz = oz + t * dz
-    u = ux * px + uy * py + uz * pz + u0
-    v = vx * px + vy * py + vz * pz + v0c
-    valid = (
-        (jnp.abs(den) >= eps)
-        & (u >= 0.0)
-        & (v >= 0.0)
-        & (u + v <= 1.0)
-        & (t > eps)
-    )
-    if t_limit is not None:
-        valid = valid & (t < t_limit)
-    return jnp.where(valid, t, INF)
-
-
-def _pmt_o_tile(d, blk, eps, t_limit=None):
-    """Baldwin–Weber with the ray ORIGIN FOLDED INTO THE BLOCK SCALARS —
-    the shared-origin fast path (variant "pmto"). All primary rays of a
-    pinhole camera leave one point, so d0' = d0 - n·o, u0' = u0 + U·o,
-    v0' = v0c + V·o are per-triangle constants adjusted once per launch
-    in XLA (_fold_origin, ~600 KB elementwise at teapot size); the kernel
-    then never touches the origin rows: t = d0'/den, u = u0' + t·(U·d),
-    v = v0' + t·(V·d) — ~25% fewer VPU ops per (ray, triangle) than
-    `_pmt_tile` (no n·o FMAs, no hit-point materialization). Same 12-row
-    block layout, so the launch plumbing is unchanged. Algebraically
-    identical to "pmt"; association differs, so results may flip on
-    acceptance boundaries within one rounding."""
-    dx, dy, dz = d
-    cs = blk.shape[1]
-
-    def col(k):
-        return jnp.reshape(blk[k:k + 1, :], (cs, 1))
-
-    nx, ny, nz, d0 = col(0), col(1), col(2), col(3)
-    ux, uy, uz, u0 = col(4), col(5), col(6), col(7)
-    vx, vy, vz, v0c = col(8), col(9), col(10), col(11)
-    den = nx * dx + ny * dy + nz * dz            # [CS, RT]
-    t = d0 / den
-    u = u0 + t * (ux * dx + uy * dy + uz * dz)
-    v = v0c + t * (vx * dx + vy * dy + vz * dz)
-    valid = (
-        (jnp.abs(den) >= eps)
-        & (u >= 0.0)
-        & (v >= 0.0)
-        & (u + v <= 1.0)
-        & (t > eps)
-    )
-    if t_limit is not None:
-        valid = valid & (t < t_limit)
-    return jnp.where(valid, t, INF)
-
-
-def _fold_origin(pmt_blocks, o):
-    """[C, 12, CS] Baldwin–Weber blocks -> origin-folded blocks for the
-    "pmto" variant: d0' = d0 - n·o, u0' = u0 + U·o, v0' = v0c + V·o.
-    Pure elementwise XLA over the block table; o is a [3] array (may be
-    traced)."""
-    o = jnp.asarray(o, dtype=pmt_blocks.dtype).reshape(3, 1)
-    n, d0 = pmt_blocks[:, 0:3], pmt_blocks[:, 3:4]
-    u_, u0 = pmt_blocks[:, 4:7], pmt_blocks[:, 7:8]
-    v_, v0 = pmt_blocks[:, 8:11], pmt_blocks[:, 11:12]
-    no = jnp.sum(n * o[None], axis=1, keepdims=True)
-    uo = jnp.sum(u_ * o[None], axis=1, keepdims=True)
-    vo = jnp.sum(v_ * o[None], axis=1, keepdims=True)
-    return jnp.concatenate(
-        [n, d0 - no, u_, u0 + uo, v_, v0 + vo], axis=1)
-
-
-def _woop_tile_t(rays8t, blk, cs, eps, t_limit=None):
-    """Woop-transform intersection of the ray tile against one cluster:
-    rays8t [8, RT] (SoA rows), blk [8, 6*CS]. The transform is ONE MXU
-    matmul contracting the shared 8-row axis, emitted TRANSPOSED as
-    [6*CS, RT] so the six per-quantity slices land on the SUBLANE axis —
-    legal and cheap for any CS divisible by 8, where lane-axis slicing
-    would only be aligned at multiples of 128. The epilogue is ~14 VPU ops
-    per (ray, triangle). Returns t [CS, RT]."""
-    # precision: TPU DEFAULT would truncate the operands to bf16 (one MXU
-    # pass) — measured ~27% of teapot pixels off by >1e-2 at 48x48. HIGHEST
-    # (bf16_6x) restores full f32; the geometry transform is where all the
-    # cancellation lives, so this is not negotiable for the strict path.
-    out = jax.lax.dot_general(
-        blk, rays8t, (((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )  # [6*CS, RT]
-    olx = out[0 * cs:1 * cs, :]
-    oly = out[1 * cs:2 * cs, :]
-    olz = out[2 * cs:3 * cs, :]
-    dlx = out[3 * cs:4 * cs, :]
-    dly = out[4 * cs:5 * cs, :]
-    dlz = out[5 * cs:6 * cs, :]
-    rcp = 1.0 / jnp.where(jnp.abs(dlz) < _TINY, _TINY, dlz)
-    t = -olz * rcp
-    u = olx + t * dlx
-    v = oly + t * dly
-    valid = (
-        (jnp.abs(dlz) >= _TINY)
-        & (u >= 0.0)
-        & (v >= 0.0)
-        & (u + v <= 1.0)
-        & (t > eps)
-    )
-    if t_limit is not None:
-        valid = valid & (t < t_limit)
-    return jnp.where(valid, t, INF)
-
-
-def _scene_exit_row(o_cols, d_cols, bbox_ref, rt):
-    """Per-lane UPPER bound on the t of any possible cluster hit: the exit
-    parameter of the ray from the walked cluster set's union AABB
-    (bbox_ref [2, 3] SMEM; row 0 = min, row 1 = max). Every cluster lies
-    inside that box, so a hit at parameter t implies the hit point is in
-    the box, i.e. t <= exit. Lanes that MISS the box entirely can hit
-    nothing and settle at -inf from the start. This feeds ONLY the
-    batched front-to-back early exit (_walk_kernel): sky/escaping lanes
-    otherwise hold best_t = +inf forever and keep their whole tile
-    walking every listed cluster.
-
-    Conservative float handling: the exit is inflated by ~a few ulp so
-    f32 rounding can't under-estimate the true exit; near-zero direction
-    components make the axis unbounded (exit grows — safe direction).
-    o_cols None = origin at 0 (camera mode). Returns [1, rt] f32."""
-    tmin = None
-    tmax = None
-    for k in range(3):
-        d = d_cols[k]
-        o = o_cols[k] if o_cols is not None else jnp.zeros((1, rt),
-                                                           jnp.float32)
-        deg = jnp.abs(d) < _TINY
-        dk = jnp.where(deg, _TINY, d)
-        t1 = (bbox_ref[0, k] - o) / dk
-        t2 = (bbox_ref[1, k] - o) / dk
-        lo_ = jnp.where(deg, -INF, jnp.minimum(t1, t2))
-        hi_ = jnp.where(deg, INF, jnp.maximum(t1, t2))
-        tmin = lo_ if k == 0 else jnp.maximum(tmin, lo_)
-        tmax = hi_ if k == 0 else jnp.minimum(tmax, hi_)
-    exit_t = tmax * (1.0 + 1e-5) + 1e-6
-    return jnp.where((tmin <= exit_t) & (exit_t >= 0.0), exit_t, -INF)
-
-
-def _camera_dirs(tile, rt, offs_ref, camera):
-    """In-kernel primary-ray direction rows for culling tile `tile` —
-    the TPU-native answer to "don't stream what index arithmetic can
-    recompute": the reference derives each pixel's ray inside its loop
-    (main.rs:321-365); here one [1, RT] lane row per axis is derived from
-    the tile index, so the walk never reads a materialized ray pack from
-    HBM (82 MB/frame at the reference workload, read once by the extents
-    pass and again by the walk).
-
-    camera = (w, h, spp, scale, aspect, bh, bw) — static python values;
-    offs_ref: [spp, 2] SMEM stratified sub-pixel offsets (traced — the
-    benchmark's dependency chain rides them). Tile == one bh x bw pixel
-    block x spp samples in block_ray_ids order (models/camera.py):
-    lane l -> sample s = l // (bh*bw), pixel (by, bx) = divmod(l % (bh*bw),
-    bw), block (br, bc) = divmod(tile, W/bw). The f32 op ORDER matches
-    camera_rays exactly, so derived directions are bitwise identical to
-    the materialized pack's."""
-    w, h, spp, scale, aspect, bh, bw = camera
-    # Clamp to the frame's block grid: a chunked launch whose last chunk
-    # overruns the frame derives the LAST block's FULL ray set for the
-    # padding tiles. NOTE this differs from block_ray_ids' pack-path
-    # clamp (which repeats ONE flat ray id), so an overrunning chunk's
-    # padding rows pair camera-walk hits with mismatched materialized
-    # (o, d) at shading — harmless only because correctness relies on
-    # callers dropping rows past the frame before use (render() trims
-    # rgb[:r]; tests/test_render.py pins the overrun case).
-    tile = jnp.minimum(tile, (w // bw) * (h // bh) - 1)
-    p2 = bh * bw
-    l = jax.lax.broadcasted_iota(jnp.int32, (1, rt), 1)
-    s_idx = l // p2
-    p = l % p2
-    by = p // bw
-    bx = p % bw
-    nbx = w // bw
-    br = tile // nbx
-    bc = tile % nbx
-    xi = (bc * bw + bx).astype(jnp.float32)
-    yi = (br * bh + by).astype(jnp.float32)
-    ox = jnp.zeros((1, rt), jnp.float32)
-    oy = jnp.zeros((1, rt), jnp.float32)
-    for k in range(spp):
-        ox = jnp.where(s_idx == k, offs_ref[k, 0], ox)
-        oy = jnp.where(s_idx == k, offs_ref[k, 1], oy)
-    # Two separate multiplies, matching models/camera.camera_rays's
-    # `* aspect * config.scale` association bit for bit.
-    xx = (2.0 * (xi + ox) / w - 1.0) * aspect * scale
-    yy = (1.0 - 2.0 * (yi + oy) / h) * scale
-    return xx, yy, jnp.ones((1, rt), jnp.float32)
-
-
-def _walk_kernel(cnt_ref, ids_ref, rays_ref, *refs, cluster_size,
-                 eps, variant, nearest, t_max, n_attrs=0, unroll=1,
-                 per_ray_tmax=False, ray_tile=RAY_TILE, ids_mode="prefetch",
-                 early_exit=False, camera=None, ee_batch=None,
-                 flat_acc=False, lane_cull=False):
-    """Shared nearest/any-hit walk over the tile's visit list.
-
-    Layout: everything is transposed so RAYS LIVE ON LANES and TRIANGLES
-    ON SUBLANES. Rays arrive as one [8, RT] SoA block (rows ox oy oz 1
-    dx dy dz 0 — already the Woop matmul operand); per-visit intersection
-    results are [CS, RT]; outputs leave as [1, RT] rows, which the final
-    sublane-axis reduction produces directly (no transpose, no narrow
-    [RT, 1] blocks whose lane dim would pad 1 -> 128 in HBM — a 128x
-    traffic blowup measured on v5e).
-
-    The per-visit update keeps PER-SUBLANE best accumulators [CS, RT] — a
-    running elementwise min over visited clusters plus the matching packed
-    SLOT id — and does the cross-sublane reduction exactly ONCE after the
-    loop. The reference re-splats its scalar best after every packet
-    (main.rs:127); here the "re-splat" is free because each (sublane, lane)
-    owns its own best. The kernel emits packed slot ids; the caller maps
-    slot -> original triangle id with one XLA gather (accel.order).
-
-    Each grid step processes SUBTILES culling tiles (a [8, SUBTILES*RT]
-    ray block): the fixed per-step cost (DMA issue, bookkeeping) measured
-    ~0.46 us — amortizing it over 4 tiles cuts the frame floor 4x while
-    keeping the 256-ray frustum granularity that makes culling tight.
-
-    With n_attrs > 0 (nearest only), an attr_ref [C, n_attrs, CS] input
-    follows tri_ref and an a_ref [n_attrs, RT-step] output follows i_ref:
-    the loop carries one extra [CS, RT] accumulator per attribute plane,
-    selected by the same t-improved mask, and the post-loop winner mask
-    (t == tmin AND slot == smin — exactly one sublane) turns the
-    cross-sublane extraction into a masked sum. This is how per-hit
-    shading data leaves the kernel WITHOUT a post-trace gather: a 2.56
-    M-ray id gather measured 19.5 ms on v5e — 3.4x the whole traversal —
-    while the in-loop selects cost ~25%% of one intersection.
-    """
-    refs = list(refs)
-    if early_exit:
-        # With the tnear prefetch enabled, positional operand 3 is the
-        # per-tile entry-t table; the [2, 3] union-AABB row (scene-exit
-        # settle, _scene_exit_row) follows it, then the ray block.
-        tnear_ref = rays_ref
-        bbox_ref = refs.pop(0)
-        rays_ref = refs.pop(0)
-    else:
-        tnear_ref = bbox_ref = None
-    if camera is not None and len(camera) > 8 and camera[8]:
-        # Chunked camera mode: the launch covers tiles [base, base+n) of
-        # the frame's block grid; the global tile index (which the ray
-        # derivation needs) is local + base, base riding as a [1, 1] SMEM
-        # scalar so the chunk program stays parameterized by scalars only.
-        base_ref = refs.pop(0)
-    else:
-        base_ref = None
-    tmax_ref = refs.pop(0) if per_ray_tmax else None
-    # lane_cull: per-cluster AABB rows (min xyz | max xyz) in SMEM — the
-    # per-visit [1, RT] lane-slab pre-test reads 6 scalars per visit.
-    lcb_ref = refs.pop(0) if lane_cull else None
-    tri_ref = refs.pop(0)
-    if n_attrs:
-        attr_ref, t_ref, i_ref, a_ref = refs
-    else:
-        (t_ref, i_ref) = refs
-        attr_ref = a_ref = None
-    rt = ray_tile
-    if camera is not None:
-        # Camera mode: the "rays" operand slot holds the tiny [spp, 2]
-        # stratified-offset table; ray rows are derived in-register per
-        # subtile (_camera_dirs). Only the origin-folded "pmto"
-        # intersector is supported (primaries share the origin by
-        # definition), and every lane is alive.
-        offs_ref = rays_ref
-        rays_ref = None
-        subtiles = camera[7]
-        rt_step = subtiles * rt
-    else:
-        rt_step = rays_ref.shape[1]
-        subtiles = rt_step // rt
-    cs = cluster_size
-    ku = unroll
-    i = pl.program_id(0)
-
-    for s in range(subtiles):
-        tile = i * subtiles + s
-        lo = s * rt
-        if camera is not None:
-            gtile = tile if base_ref is None else tile + base_ref[0, 0]
-            d_cols = _camera_dirs(gtile, rt, offs_ref, camera[:7])
-            o_cols = None  # pinhole at 0 (scene-exit row's convention)
-        elif variant == "woop":
-            rays8t = rays_ref[:, lo:lo + rt]  # [8, RT]
-            d_cols = tuple(rays8t[k:k + 1, :] for k in (4, 5, 6))
-            o_cols = tuple(rays8t[k:k + 1, :] for k in (0, 1, 2))
-        else:
-            rows = rays_ref[:, lo:lo + rt]
-            d_cols = tuple(rows[k:k + 1, :] for k in (4, 5, 6))
-            # o rows feed the intersectors (except "pmto", whose blocks
-            # fold the origin) and the scene-exit row; unused slices DCE.
-            o_cols = tuple(rows[k:k + 1, :] for k in (0, 1, 2))
-        if per_ray_tmax:
-            t_lim = tmax_ref[:, lo:lo + rt]  # [1, RT] per-ray bound
-        elif nearest:
-            # Finite t_max in nearest mode = the capped first phase of a
-            # two-phase incoherent query (see nearest_hit_attrs_soa).
-            t_lim = None if t_max == float("inf") else t_max
-        else:
-            t_lim = t_max
-
-        def intersect(blk):
-            # blk: [rows, KU*CS] (row layouts) or [KU*CS, 12] ("pmtt") —
-            # KU clusters' blocks fused; the intersectors treat the fused
-            # block as one (KU*CS)-triangle cluster (per-triangle entries
-            # land on sublanes either way). The woop layout is
-            # quantity-major PER cluster, so its sub-blocks intersect
-            # separately (still one loop trip; only the matmul splits).
-            if variant == "pmtt":
-                return _pmt_t_tile(o_cols, d_cols, blk, eps, t_lim)
-            if variant == "woop":
-                return jnp.concatenate(
-                    [_woop_tile_t(rays8t, blk[:, k * 6 * cs:(k + 1) * 6 * cs],
-                                  cs, eps, t_lim)
-                     for k in range(ku)], axis=0)
-            if variant == "pmto":
-                return _pmt_o_tile(d_cols, blk, eps, t_lim)
-            if variant == "pmt":
-                return _pmt_tile(o_cols, d_cols, blk, eps, t_lim)
-            return _mt_tile(o_cols, d_cols, blk, eps, t_lim)
-
-        # Overflow fallback: visit lists are sliced to a static width W
-        # (launch plumbing). A tile whose TRUE count exceeds W — possible
-        # for incoherent ray batches whose frustum covers most of the
-        # scene — scans ALL C clusters in index order instead (correct,
-        # and such tiles get no culling benefit anyway).
-        #
-        # NOTE on early termination: an in-kernel front-to-back break
-        # (while_loop on an SMEM scalar bound) was measured 4.5x SLOWER —
-        # the per-visit vector->scalar->loop-condition roundtrip stalls
-        # the pipeline — and a perfect break could only skip 36% of
-        # visits on the teapot frame (48% of tiles contain a miss ray and
-        # can never break). The plain counted loop wins.
-        #
-        # UNROLL: each loop trip processes KU visit-list entries as ONE
-        # fused [rows, KU*CS] block — the per-trip fixed cost (scalar
-        # reads, dynamic slices, loop bookkeeping) measured ~3x the pure
-        # VPU cost of a single CS-wide intersection, so amortizing it over
-        # KU clusters is most of a 2x. Out-of-range entries (j >= count)
-        # clamp to the last entry — repeated visits are idempotent for
-        # both the nearest min-reduce and the occlusion min.
-        n_total = tri_ref.shape[0]
-        width = ids_ref.shape[1]
-        n_true = cnt_ref[s, 0] if ids_mode == "smem" else cnt_ref[tile]
-        overflow = n_true > width
-        trips = jnp.where(overflow, n_total, n_true)
-        trips = (trips + (ku - 1)) // ku
-
-        # ids either live in SMEM whole ([n_tiles, W] scalar-prefetched)
-        # or arrive per grid step as a [subtiles, W] slice (SMEM or VMEM,
-        # row = local subtile) — sliced modes lift the SMEM budget that
-        # forced chunked launches at high tile counts.
-        id_row = s if ids_mode != "prefetch" else tile
-
-        def clusters_of(j):
-            out = []
-            for kk in range(ku):
-                jj = j * ku + kk
-                out.append(jnp.where(
-                    overflow,
-                    jnp.minimum(jj, n_total - 1),
-                    ids_ref[id_row, jnp.minimum(jj, width - 1)],
-                ))
-            return out
-
-        tposed = variant == "pmtt"
-
-        def fused(ref, cl):
-            if ku == 1:
-                return ref[cl[0]]
-            return jnp.concatenate([ref[c] for c in cl],
-                                   axis=0 if tposed else 1)
-
-        def lane_cull_cond(cl, visit, acc):
-            """Per-visit lane-slab pre-test: intersect the visit's
-            cluster AABB(s) (6 SMEM scalars each) against the ACTUAL
-            rays as [1, RT] row math (~1/CS of the full intersection's
-            cost) and skip the CS-wide visit when NO lane enters ANY of
-            them. The tile's visit list is a frustum-hull union —
-            measured on the teapot GI level, only ~34 of ~90 listed
-            clusters are entered by any of the tile's 1024 rays
-            (directions fan within the cone; each ray is a thin line).
-            With unroll > 1 every fused member's AABB is tested (the
-            cond skips only when all are empty — halving the lax.cond
-            count, which Mosaic prices at ~1-2 us each, at the cost of
-            occasionally intersecting a fused block only one member of
-            which is entered). The 2e-6 relative + 1e-7 absolute slab
-            inflation covers the rounding error measured on the tested
-            scenes and on-chip traces; the intersector's accepted t is
-            computed through a different rounding path, so this guard is
-            empirical, not proven — gi_lane_cull=False is the documented
-            escape hatch if a scene ever disagrees with its oracle."""
-            enter = None
-            for c0 in cl:
-                tn = None
-                tf = None
-                for k in range(3):
-                    dk_ = d_cols[k]
-                    ok_ = (o_cols[k] if o_cols is not None
-                           else jnp.zeros((1, rt), jnp.float32))
-                    deg = jnp.abs(dk_) < _TINY
-                    dsafe = jnp.where(deg, _TINY, dk_)
-                    t1 = (lcb_ref[k, c0] - ok_) / dsafe
-                    t2 = (lcb_ref[k + 3, c0] - ok_) / dsafe
-                    lo_ = jnp.where(deg, -INF, jnp.minimum(t1, t2))
-                    hi_ = jnp.where(deg, INF, jnp.maximum(t1, t2))
-                    tn = lo_ if k == 0 else jnp.maximum(tn, lo_)
-                    tf = hi_ if k == 0 else jnp.minimum(tf, hi_)
-                tf = tf + (jnp.abs(tf) * 2e-6 + 1e-7)
-                tn = tn - (jnp.abs(tn) * 2e-6 + 1e-7)
-                e = (tn <= tf) & (tf >= 0.0)
-                enter = e if enter is None else (enter | e)
-            return jax.lax.cond(jnp.any(enter), visit, lambda a: a, acc)
-
-        if nearest:
-            sub_slot = jax.lax.broadcasted_iota(jnp.int32, (ku * cs, 1), 0)
-            sub_slot = sub_slot % cs
-
-            if flat_acc:
-                # FLAT accumulators: each visit's [KU*CS, RT] result is
-                # reduced to [1, RT] (min t, min slot among the visit's
-                # min-t sublanes, that slot's attr rows) IMMEDIATELY, so
-                # the loop carries (2 + A) [1, RT] rows instead of
-                # (2 + A) [KU*CS, RT] planes. Rationale (measured, v5e):
-                # the loop-carried planes live in VMEM and are re-read +
-                # re-written every visit — at cs=64 with 4 attr planes
-                # that is ~3 MB/visit, and the GI walk's 111 ms matched
-                # that traffic at VMEM bandwidth, not the intersection
-                # FLOPs (~18 ms). The per-visit sublane reductions cost
-                # ~1 pass each — compute-bound instead of traffic-bound.
-                # Tie rule: global (min t, then min slot at that t) —
-                # the documented contract, and what the index-order
-                # cluster/bruteforce oracles produce. (The plane path
-                # has one divergent corner: an equal-t candidate landing
-                # on a sublane row that already holds that t from an
-                # EARLIER visit is dropped by its strict per-row update,
-                # keeping the earlier slot even if larger. Flat mode
-                # resolves such ties to the min slot, i.e. the oracle's
-                # answer.)
-                def body(j, acc):
-                    cl = clusters_of(j)
-
-                    def visit(acc):
-                        acc_t, acc_s = acc[0], acc[1]
-                        acc_a = acc[2:]
-                        t = intersect(fused(tri_ref, cl))  # [KU*CS, RT]
-                        cid = jnp.concatenate(
-                            [jnp.broadcast_to(c * cs, (cs, 1)) for c in cl],
-                            axis=0) if ku > 1 else cl[0] * cs
-                        slot = cid + sub_slot  # [KU*CS, 1]
-                        tmin_v = jnp.min(t, axis=0, keepdims=True)
-                        win = t == tmin_v
-                        slot_v = jnp.min(
-                            jnp.where(win, slot, _BIG_ID), axis=0,
-                            keepdims=True)  # [1, RT]
-                        better = tmin_v < acc_t
-                        # Finite guard: INF == INF must NOT count as a
-                        # tie — a lane that missed both this visit and
-                        # all previous ones would otherwise adopt this
-                        # visit's smallest slot (and its attrs).
-                        eq = (tmin_v == acc_t) & (tmin_v < INF)
-                        upd = better | (eq & (slot_v < acc_s))
-                        acc_s = jnp.where(upd, slot_v, acc_s)
-                        if n_attrs:
-                            win2 = win & (slot == slot_v)
-                            ablk = fused(attr_ref, cl)
-                            for k in range(n_attrs):
-                                rows = (ablk[:, k:k + 1] if tposed else
-                                        jnp.reshape(ablk[k:k + 1, :],
-                                                    (ku * cs, 1)))
-                                a_v = jnp.max(
-                                    jnp.where(win2, rows, -INF), axis=0,
-                                    keepdims=True)
-                                acc_a = acc_a[:k] + (jnp.where(
-                                    upd, a_v, acc_a[k]),) + acc_a[k + 1:]
-                        acc_t = jnp.minimum(acc_t, tmin_v)
-                        return (acc_t, acc_s) + acc_a
-
-                    if lane_cull:
-                        return lane_cull_cond(cl, visit, acc)
-                    return visit(acc)
-
-                acc0 = (
-                    jnp.full((1, rt), INF, dtype=jnp.float32),
-                    jnp.full((1, rt), _BIG_ID, dtype=jnp.int32),
-                ) + tuple(
-                    jnp.zeros((1, rt), dtype=jnp.float32)
-                    for _ in range(n_attrs)
-                )
-            else:
-                def body(j, acc):
-                    acc_t, acc_s = acc[0], acc[1]
-                    acc_a = acc[2:]
-                    cl = clusters_of(j)
-                    t = intersect(fused(tri_ref, cl))  # [KU*CS, RT]
-                    # packed slot id rows: block kk covers cluster cl[kk]
-                    cid = jnp.concatenate(
-                        [jnp.broadcast_to(c * cs, (cs, 1)) for c in cl],
-                        axis=0) if ku > 1 else cl[0] * cs
-                    slot = cid + sub_slot  # [KU*CS, 1]
-                    better = t < acc_t
-                    acc_s = jnp.where(better, slot, acc_s)
-                    if n_attrs:
-                        ablk = fused(attr_ref, cl)  # [A,KU*CS] | [KU*CS,A]
-                        acc_a = tuple(
-                            jnp.where(
-                                better,
-                                ablk[:, k:k + 1] if tposed else
-                                jnp.reshape(ablk[k:k + 1, :], (ku * cs, 1)),
-                                acc_a[k],
-                            )
-                            for k in range(n_attrs)
-                        )
-                    acc_t = jnp.minimum(acc_t, t)
-                    return (acc_t, acc_s) + acc_a
-
-                acc0 = (
-                    jnp.full((ku * cs, rt), INF, dtype=jnp.float32),
-                    jnp.full((ku * cs, rt), _BIG_ID, dtype=jnp.int32),
-                ) + tuple(
-                    jnp.zeros((ku * cs, rt), dtype=jnp.float32)
-                    for _ in range(n_attrs)
-                )
-            if early_exit:
-                # BATCHED front-to-back early exit for LARGE scenes: the
-                # visit list is entry-t ordered, so once every alive lane's
-                # best t is below the next entry's lower bound, no
-                # remaining cluster can improve any lane. A per-visit
-                # scalar check measured 4.5x slower (vector->scalar
-                # roundtrip stall); checking once per EC visits amortizes
-                # the stall to noise while interior tiles of a finely
-                # tessellated mesh stop after one or two batches instead
-                # of walking hundreds of silhouette near-misses.
-                # Overflow tiles scan unordered -> their nxt is -inf and
-                # they never exit early.
-                ec = ee_batch if ee_batch else EARLY_EXIT_BATCH
-                # Camera mode: every lane is alive by construction.
-                alive_lane = (None if camera is not None
-                              else rays_ref[7:8, lo:lo + rt] != 0.0)
-                # Scene-exit settle: a lane whose ray has LEFT the cluster
-                # set's union AABB can hit nothing further, so for the
-                # exit check it counts as settled at its box-exit t. Sky/
-                # escaping lanes otherwise pin best_t at +inf and block
-                # the exit for their whole tile — the measured reason GI
-                # tiles walked 350-640 of ~790 teapot clusters.
-                exit_row = _scene_exit_row(o_cols, d_cols, bbox_ref, rt)
-
-                def wcond(st):
-                    return (st[0] < trips) & jnp.logical_not(st[1])
-
-                def wbody(st):
-                    j = st[0]
-                    acc = st[2:]
-                    for _ in range(ec):
-                        acc = body(j, acc)
-                        j = j + 1
-                    per_lane = jnp.minimum(
-                        jnp.min(acc[0], axis=0, keepdims=True), exit_row)
-                    worst = (jnp.max(per_lane) if alive_lane is None else
-                             jnp.max(jnp.where(alive_lane, per_lane, -INF)))
-                    nxt = jnp.where(
-                        overflow, -INF,
-                        tnear_ref[id_row, jnp.minimum(j * ku, width - 1)])
-                    return (j, worst < nxt) + acc
-
-                st = jax.lax.while_loop(
-                    wcond, wbody,
-                    (jnp.int32(0), jnp.bool_(False)) + acc0)
-                acc = st[2:]
-            else:
-                acc = jax.lax.fori_loop(0, trips, body, acc0)
-            acc_t, acc_s = acc[0], acc[1]
-            if flat_acc:
-                # Already reduced per visit; the accumulators ARE the
-                # outputs (attrs kept their zero init on miss lanes).
-                t_ref[:, lo:lo + rt] = acc_t
-                i_ref[:, lo:lo + rt] = acc_s
-                for k in range(n_attrs):
-                    a_ref[k:k + 1, lo:lo + rt] = acc[2 + k]
-                continue
-            tmin = jnp.min(acc_t, axis=0, keepdims=True)  # [1, RT]
-            # A clamped (repeated) visit can leave the SAME (t, slot) on
-            # two sublane rows; the min over slots still picks a unique
-            # winner id.
-            smin = jnp.min(
-                jnp.where(acc_t == tmin, acc_s, _BIG_ID), axis=0,
-                keepdims=True
-            )
-            t_ref[:, lo:lo + rt] = tmin
-            i_ref[:, lo:lo + rt] = smin
-            if n_attrs:
-                # Winner mask: on miss lanes every accumulator plane is
-                # still its zero init, so the masked MAX correctly emits 0
-                # attributes. (max, not sum: a repeated clamped visit can
-                # put the winning (t, slot) on several sublanes, and the
-                # duplicates carry identical attr values.)
-                winner = (acc_t == tmin) & (acc_s == smin)
-                for k in range(n_attrs):
-                    a_ref[k:k + 1, lo:lo + rt] = jnp.max(
-                        jnp.where(winner, acc[2 + k], -INF),
-                        axis=0, keepdims=True)
-        else:
-            # Occlusion: min-accumulate t (misses are +inf, and the t_max
-            # cut is already applied inside the intersector) — an f32
-            # carry, since Mosaic cannot carry wide i1 vectors through
-            # loops. flat_acc: reduce each visit to [1, RT] immediately
-            # (same VMEM-traffic rationale as the nearest branch).
-            if flat_acc:
-                def body(j, acc_t):
-                    cl = clusters_of(j)
-
-                    def visit(acc_t):
-                        t = intersect(fused(tri_ref, cl))
-                        return jnp.minimum(
-                            acc_t, jnp.min(t, axis=0, keepdims=True))
-
-                    if lane_cull:
-                        return lane_cull_cond(cl, visit, acc_t)
-                    return visit(acc_t)
-
-                acc_t0 = jnp.full((1, rt), INF, dtype=jnp.float32)
-            else:
-                def body(j, acc_t):
-                    return jnp.minimum(
-                        acc_t, intersect(fused(tri_ref, clusters_of(j))))
-
-                acc_t0 = jnp.full((ku * cs, rt), INF, dtype=jnp.float32)
-            acc_t = jax.lax.fori_loop(0, trips, body, acc_t0)
-            tmin = jnp.min(acc_t, axis=0, keepdims=True)
-            t_ref[:, lo:lo + rt] = tmin
-            i_ref[:, lo:lo + rt] = (tmin < INF).astype(jnp.int32)
-
-
-def _gstream_kernel(cnt_ref, ids_ref, rays_ref, *refs, cluster_size,
-                    group_size, eps, variant, nearest, t_max, n_attrs=0,
-                    per_ray_tmax=False, ray_tile=RAY_TILE,
-                    early_exit=False, ee_batch=None):
-    """STREAMED-GROUPS walk: the >VMEM sibling of `_walk_kernel`.
-
-    Grid is (n_steps, n_groups) with groups INNERMOST: iteration (i, g)
-    walks ray step i against cluster group g, whose kernel blocks arrive
-    as a grid-sliced operand — Pallas double-buffers the slices, so group
-    g+1 streams HBM->VMEM while g computes. That replaces the former
-    "sequence of full resident-block launches + XLA merges" for large
-    scenes with ONE launch whose per-(sublane, lane) best accumulators
-    live in VMEM scratch across the group axis: init at g == 0, reduce +
-    emit at g == n_groups-1. Visit lists are per (group, tile), stacked
-    row-major as [G*n_tiles(, W)] and SMEM-sliced per grid step (the
-    "smem" ids mode); cluster ids in them are GROUP-LOCAL, so packed slot
-    ids are (g*group_size + id)*CS + sublane. The batched front-to-back
-    early exit (see _walk_kernel) runs per group with that group's
-    entry-t table.
-
-    Scratch layout: acc_t/acc_s (+ one per attr plane) are [CS, step]
-    with each subtile owning its [CS, RT] column slice."""
-    refs = list(refs)
-    if early_exit:
-        # Operand order mirrors _walk_kernel: tnear, then the per-GROUP
-        # [2, 3] union-AABB slice (scene-exit settle), then the ray block.
-        tnear_ref = rays_ref
-        bbox_ref = refs.pop(0)
-        rays_ref = refs.pop(0)
-    else:
-        tnear_ref = bbox_ref = None
-    tmax_ref = refs.pop(0) if per_ray_tmax else None
-    tri_ref = refs.pop(0)
-    attr_ref = refs.pop(0) if n_attrs else None
     if nearest:
-        if n_attrs:
-            t_ref, i_ref, a_ref = refs[:3]
-            sc = refs[3:]
-        else:
-            t_ref, i_ref = refs[:2]
-            a_ref = None
-            sc = refs[2:]
-        acc_t_ref, acc_s_ref = sc[0], sc[1]
-        acc_a_refs = sc[2:2 + n_attrs]
+        def body(j, carry):
+            cid = cluster_at(j)
+
+            def visit(c):
+                best_t, best_s = c
+                t = tri_t(cid, None)
+                tmin = jnp.min(t, axis=1)
+                slot = cid * cs + lane
+                smin = jnp.min(jnp.where(t == tmin[:, None], slot, _BIG_ID),
+                               axis=1)
+                # Global tie rule: least t, then least slot (a tie of two
+                # misses is no tie).
+                upd = (tmin < best_t) | ((tmin == best_t) & (tmin < INF)
+                                         & (smin < best_s))
+                return (jnp.where(upd, tmin, best_t),
+                        jnp.where(upd, smin, best_s))
+
+            return jax.lax.cond(any_(enters(cid, carry[0])), visit,
+                                lambda c: c, carry)
+
+        init = (jnp.full(ox.shape, INF, jnp.float32),
+                jnp.full(ox.shape, _BIG_ID, jnp.int32))
+        best_t, best_s = jax.lax.fori_loop(0, trips, body, init)
+        t_ref, s_ref = out_refs
+        t_ref[...] = best_t
+        s_ref[...] = best_s
     else:
-        t_ref, i_ref = refs[:2]
-        a_ref = None
-        acc_t_ref = refs[2]
-        acc_s_ref = None
-        acc_a_refs = ()
-    rt_step = rays_ref.shape[1]
-    rt = ray_tile
-    subtiles = rt_step // rt
-    cs = cluster_size
-    g = pl.program_id(1)
-    ng = pl.num_programs(1)
+        def cond(c):
+            j, occ = c
+            return (j < trips) & any_((occ == 0) & alive)
 
-    for s in range(subtiles):
-        lo = s * rt
-        if variant == "woop":
-            rays8t = rays_ref[:, lo:lo + rt]
-            d_cols = tuple(rays8t[k:k + 1, :] for k in (4, 5, 6))
-            o_cols = tuple(rays8t[k:k + 1, :] for k in (0, 1, 2))
-        else:
-            rows = rays_ref[:, lo:lo + rt]
-            d_cols = tuple(rows[k:k + 1, :] for k in (4, 5, 6))
-            o_cols = tuple(rows[k:k + 1, :] for k in (0, 1, 2))
-        if per_ray_tmax:
-            t_lim = tmax_ref[:, lo:lo + rt]
-        elif nearest:
-            t_lim = None if t_max == float("inf") else t_max
-        else:
-            t_lim = t_max
+        def body(c):
+            j, occ = c
+            cid = cluster_at(j)
+            live = enters(cid, t_max) & (occ == 0)
 
-        def intersect(blk):
-            if variant == "pmtt":
-                return _pmt_t_tile(o_cols, d_cols, blk, eps, t_lim)
-            if variant == "woop":
-                return _woop_tile_t(rays8t, blk, cs, eps, t_lim)
-            if variant == "pmto":
-                return _pmt_o_tile(d_cols, blk, eps, t_lim)
-            if variant == "pmt":
-                return _pmt_tile(o_cols, d_cols, blk, eps, t_lim)
-            return _mt_tile(o_cols, d_cols, blk, eps, t_lim)
+            def visit(occ):
+                t = tri_t(cid, t_max[:, None])
+                hit = jnp.min(t, axis=1) < INF
+                return jnp.where(hit, 1, occ)
 
-        n_total = tri_ref.shape[0]  # == group_size (padded)
-        width = ids_ref.shape[1]
-        n_true = cnt_ref[s, 0]
-        overflow = n_true > width
-        trips = jnp.where(overflow, n_total, n_true)
+            return j + 1, jax.lax.cond(any_(live), visit,
+                                       lambda x: x, occ)
 
-        def cluster_of(j):
-            return jnp.where(overflow, jnp.minimum(j, n_total - 1),
-                             ids_ref[s, jnp.minimum(j, width - 1)])
-
-        if nearest:
-            sub_slot = jax.lax.broadcasted_iota(jnp.int32, (cs, 1), 0)
-            base_slot = g * (group_size * cs)
-
-            def body(j, acc):
-                acc_t, acc_s = acc[0], acc[1]
-                acc_a = acc[2:]
-                cl = cluster_of(j)
-                t = intersect(tri_ref[cl])  # [CS, RT]
-                slot = base_slot + cl * cs + sub_slot
-                better = t < acc_t
-                acc_s = jnp.where(better, slot, acc_s)
-                if n_attrs:
-                    ablk = attr_ref[cl]  # [A, CS] | [CS, A] (pmtt)
-                    acc_a = tuple(
-                        jnp.where(
-                            better,
-                            ablk[:, k:k + 1] if variant == "pmtt" else
-                            jnp.reshape(ablk[k:k + 1, :], (cs, 1)),
-                            acc_a[k],
-                        )
-                        for k in range(n_attrs)
-                    )
-                acc_t = jnp.minimum(acc_t, t)
-                return (acc_t, acc_s) + acc_a
-
-            @pl.when(g == 0)
-            def _init():
-                acc_t_ref[:, lo:lo + rt] = jnp.full((cs, rt), INF,
-                                                    jnp.float32)
-                acc_s_ref[:, lo:lo + rt] = jnp.full((cs, rt), _BIG_ID,
-                                                    jnp.int32)
-                for kk in range(n_attrs):
-                    acc_a_refs[kk][:, lo:lo + rt] = jnp.zeros((cs, rt),
-                                                              jnp.float32)
-
-            acc0 = (acc_t_ref[:, lo:lo + rt], acc_s_ref[:, lo:lo + rt]) + \
-                tuple(acc_a_refs[kk][:, lo:lo + rt]
-                      for kk in range(n_attrs))
-            if early_exit:
-                ec = ee_batch if ee_batch else EARLY_EXIT_BATCH
-                alive_lane = rays_ref[7:8, lo:lo + rt] != 0.0
-                exit_row = _scene_exit_row(o_cols, d_cols, bbox_ref, rt)
-
-                def wcond(st):
-                    return (st[0] < trips) & jnp.logical_not(st[1])
-
-                def wbody(st):
-                    j = st[0]
-                    acc = st[2:]
-                    for _ in range(ec):
-                        acc = body(j, acc)
-                        j = j + 1
-                    per_lane = jnp.minimum(
-                        jnp.min(acc[0], axis=0, keepdims=True), exit_row)
-                    worst = jnp.max(jnp.where(alive_lane, per_lane, -INF))
-                    nxt = jnp.where(
-                        overflow, -INF,
-                        tnear_ref[s, jnp.minimum(j, width - 1)])
-                    return (j, worst < nxt) + acc
-
-                st = jax.lax.while_loop(
-                    wcond, wbody, (jnp.int32(0), jnp.bool_(False)) + acc0)
-                acc = st[2:]
-            else:
-                acc = jax.lax.fori_loop(0, trips, body, acc0)
-            acc_t_ref[:, lo:lo + rt] = acc[0]
-            acc_s_ref[:, lo:lo + rt] = acc[1]
-            for kk in range(n_attrs):
-                acc_a_refs[kk][:, lo:lo + rt] = acc[2 + kk]
-
-            @pl.when(g == ng - 1)
-            def _emit():
-                acc_t = acc_t_ref[:, lo:lo + rt]
-                acc_s = acc_s_ref[:, lo:lo + rt]
-                tmin = jnp.min(acc_t, axis=0, keepdims=True)
-                smin = jnp.min(
-                    jnp.where(acc_t == tmin, acc_s, _BIG_ID), axis=0,
-                    keepdims=True)
-                t_ref[:, lo:lo + rt] = tmin
-                i_ref[:, lo:lo + rt] = smin
-                if n_attrs:
-                    winner = (acc_t == tmin) & (acc_s == smin)
-                    for kk in range(n_attrs):
-                        a_ref[kk:kk + 1, lo:lo + rt] = jnp.max(
-                            jnp.where(winner, acc_a_refs[kk][:, lo:lo + rt],
-                                      -INF),
-                            axis=0, keepdims=True)
-        else:
-            @pl.when(g == 0)
-            def _init_occ():
-                acc_t_ref[:, lo:lo + rt] = jnp.full((cs, rt), INF,
-                                                    jnp.float32)
-
-            def body_occ(j, acc_t):
-                return jnp.minimum(acc_t, intersect(tri_ref[cluster_of(j)]))
-
-            acc_t = jax.lax.fori_loop(0, trips, body_occ,
-                                      acc_t_ref[:, lo:lo + rt])
-            acc_t_ref[:, lo:lo + rt] = acc_t
-
-            @pl.when(g == ng - 1)
-            def _emit_occ():
-                tmin = jnp.min(acc_t_ref[:, lo:lo + rt], axis=0,
-                               keepdims=True)
-                t_ref[:, lo:lo + rt] = tmin
-                i_ref[:, lo:lo + rt] = (tmin < INF).astype(jnp.int32)
+        _, occ = jax.lax.while_loop(
+            cond, body, (jnp.int32(0), jnp.zeros(ox.shape, jnp.int32)))
+        out_refs[0][...] = occ
 
 
-# ---------------------------------------------------------------------------
-# Launch plumbing
-# ---------------------------------------------------------------------------
-
-
-def rays_to_soa(o: jnp.ndarray, d: jnp.ndarray, alive=None) -> jnp.ndarray:
-    """[N, 3] origins/directions -> the SoA ray pack [8, N] with rows
-    (ox oy oz 1 dx dy dz ALIVE) — simultaneously the kernel's preferred
-    HBM layout (dense lanes, no 3->128 pad) and the Woop matmul operand
-    (whose coefficient for rows 3/7 is fixed at build time, so the alive
-    flag in row 7 never reaches the intersection math).
-
-    alive: optional [N] bool — lanes marked dead are excluded from the
-    tile-frustum culling (their o/d may be garbage) and all-dead tiles
-    trace for free. Dead lanes still produce a (meaningless, masked-by-
-    caller) result."""
-    n = o.shape[0]
-    if alive is None:
-        row7 = jnp.ones((1, n), o.dtype)
-    else:
-        row7 = alive.astype(o.dtype)[None, :]
-    return jnp.concatenate(
-        [
-            o.T,
-            jnp.ones((1, n), o.dtype),
-            d.T,
-            row7,
-        ],
-        axis=0,
-    )
-
-
-def _pad_rays_soa(rays8, ray_tile=RAY_TILE):
+def _walk(accel: ClusterAccel, rays8: jnp.ndarray, eps: float,
+          nearest: bool, interpret: bool, block: int = RAY_BLOCK,
+          num_warps: int = NUM_WARPS):
+    """Phases 1-3 over the ray pack [8, N]: nearest -> (t [N] f32, packed
+    slot [N] i32); occlusion -> occluded [N] i32 (0/1)."""
+    _require_gpu(interpret)
+    cs = accel.cluster_size
+    if cs & (cs - 1):
+        raise ValueError(f"the walk needs a power-of-two cluster size, "
+                         f"not {cs}")
     n = rays8.shape[1]
-    pad = (-n) % (ray_tile * SUBTILES)
-    if pad:
-        # Padding rays: finite, and DEAD (row 7 = 0) so padding tiles
-        # cull to zero visits.
-        col = jnp.array([0, 0, 0, 1, 0, 0, 1, 0], rays8.dtype)[:, None]
-        rays8 = jnp.concatenate(
-            [rays8, jnp.broadcast_to(col, (8, pad))], axis=1
-        )
-    return rays8, n
-
-
-# SMEM budget for the scalar-prefetched visit lists (v5e SMEM is 1 MB
-# total; ids are [n_tiles, W] i32 and must fit alongside counts, padding,
-# and spill slots). Both the adaptive WIDTH (phase 2) and the launcher's
-# tile chunking derive from this, so it must leave real headroom — at
-# 640 KB a 1024-tile x 160-wide list OOM'd smem by 5 KB.
-_SMEM_IDS_BUDGET_BYTES = 448 * 1024
-
-def _launch_walk(kernel, cnt, ids, rays8, blocks, interpret, n_attrs=0,
-                 tmax_row=None, ray_tile=RAY_TILE, subtiles=SUBTILES,
-                 ids_mode="prefetch", tnear=None, bbox=None,
-                 lane_bounds=None, block_space=None, scratch_shapes=None):
-    """Launch the walk kernel, chunking ray tiles so the SMEM-resident
-    visit lists stay inside budget at any ray count (prefetch mode only —
-    the sliced modes stream per-step slices and never chunk).
-    `blocks` is a tuple of whole-array kernel inputs (triangle blocks,
-    optionally attribute blocks). `tmax_row` is an optional [1, N] per-ray
-    t_max row, sliced per grid step like the ray pack. Returns
-    (t, i[, attrs]) as [rows, n_tiles*RAY_TILE] arrays. cnt is passed
-    through UNclamped — the kernel's overflow fallback needs the true
-    count."""
-    n_tiles, c = ids.shape
-    entry_bytes = 8 if tnear is not None else 4  # ids (+ tnear) per entry
-    if ids_mode != "prefetch":
-        max_tiles = n_tiles  # per-step slices -> no SMEM-budget chunking
-    else:
-        max_tiles = max(subtiles, _SMEM_IDS_BUDGET_BYTES // (entry_bytes * c)
-                        // subtiles * subtiles)
-    if n_tiles <= max_tiles:
-        return _launch_single(kernel, cnt, ids, rays8, blocks, interpret,
-                              n_attrs, tmax_row, ray_tile, subtiles,
-                              ids_mode, tnear, bbox, lane_bounds,
-                              block_space, scratch_shapes)
-    pad_t = (-n_tiles) % max_tiles
-    if pad_t:
-        cnt = jnp.concatenate([cnt, jnp.zeros(pad_t, cnt.dtype)])
-        ids = jnp.concatenate([ids, jnp.zeros((pad_t, c), ids.dtype)])
-        col = jnp.array([0, 0, 0, 1, 0, 0, 1, 0], rays8.dtype)[:, None]
-        rays8 = jnp.concatenate(
-            [rays8, jnp.broadcast_to(col, (8, pad_t * ray_tile))], axis=1
-        )
-        if tnear is not None:
-            tnear = jnp.concatenate(
-                [tnear, jnp.full((pad_t, c), INF, tnear.dtype)])
-        if tmax_row is not None:
-            tmax_row = jnp.concatenate(
-                [tmax_row, jnp.zeros((1, pad_t * ray_tile),
-                                     tmax_row.dtype)], axis=1)
-    k = (n_tiles + pad_t) // max_tiles
-    # Statically unrolled python loop (NOT lax.map): wrapping the
-    # pallas_call in a while-loop closed_call drops the per-kernel
-    # vmem_limit compiler param on this toolchain — resident block tables
-    # near the 96 MB budget then hit the default 16 MB scoped-vmem limit
-    # at compile time. k is small (SMEM chunking only triggers at high
-    # tile counts), so unrolling costs a few extra launches, not a
-    # program-size blowup.
-    chunks = []
-    for j in range(k):
-        cnt_j = jax.lax.dynamic_slice_in_dim(cnt, j * max_tiles, max_tiles)
-        ids_j = jax.lax.dynamic_slice_in_dim(ids, j * max_tiles, max_tiles)
-        rays_j = jax.lax.dynamic_slice_in_dim(
-            rays8, j * max_tiles * ray_tile, max_tiles * ray_tile, axis=1)
-        tmax_j = None
-        if tmax_row is not None:
-            tmax_j = jax.lax.dynamic_slice_in_dim(
-                tmax_row, j * max_tiles * ray_tile, max_tiles * ray_tile,
-                axis=1)
-        tnear_j = None
-        if tnear is not None:
-            tnear_j = jax.lax.dynamic_slice_in_dim(tnear, j * max_tiles,
-                                                   max_tiles)
-        chunks.append(_launch_single(kernel, cnt_j, ids_j, rays_j, blocks,
-                                     interpret, n_attrs, tmax_j, ray_tile,
-                                     subtiles, ids_mode, tnear_j, bbox,
-                                     lane_bounds, block_space,
-                                     scratch_shapes))
-    rp = n_tiles * ray_tile
-    return tuple(
-        jnp.concatenate([ch[i] for ch in chunks], axis=1)[:, :rp]
-        for i in range(len(chunks[0]))
-    )
-
-
-def _launch_gstream(kernel, cnt, ids, rays8, blocks, interpret, n_attrs=0,
-                    tmax_row=None, ray_tile=RAY_TILE, subtiles=SUBTILES,
-                    tnear=None, nearest=True, cluster_size=16, bbox=None):
-    """Launch `_gstream_kernel` over grid (n_steps, n_groups).
-
-    cnt: [G, n_tiles] i32; ids/tnear: [G, n_tiles, W]; blocks: tuple of
-    [G*gsz, ...] padded whole tables (tri blocks, optionally attr
-    blocks). Visit-list arrays are flattened to [G*n_tiles(, W)] so their
-    SMEM slices stay 2-D (Mosaic's SMEM shape rule)."""
-    rp = rays8.shape[1]
-    step = ray_tile * subtiles
-    n_steps = rp // step
-    ng, n_tiles = cnt.shape
-    w = ids.shape[2]
-    gsz = blocks[0].shape[0] // ng
-    cs = cluster_size
-    out_rows = [1, 1] + ([n_attrs] if n_attrs else [])
-    out_dtypes = [jnp.float32, jnp.int32] + ([jnp.float32] if n_attrs else [])
-
-    smem = functools.partial(pl.BlockSpec, memory_space=pltpu.SMEM)
-    in_specs = [smem((subtiles, 1), lambda i, g: (g * n_steps + i, 0)),
-                smem((subtiles, w), lambda i, g: (g * n_steps + i, 0))]
-    operands = [cnt.reshape(ng * n_tiles, 1), ids.reshape(ng * n_tiles, w)]
-    if tnear is not None:
-        in_specs.append(smem((subtiles, w), lambda i, g: (g * n_steps + i, 0)))
-        operands.append(tnear.reshape(ng * n_tiles, w))
-        # Per-GROUP union AABB (scene-exit settle): [G, 2, 3] flattened
-        # to [G*2, 3]; block (2, 3) indexed by g.
-        in_specs.append(smem((2, 3), lambda i, g: (g, 0)))
-        operands.append(bbox.reshape(ng * 2, 3))
-    in_specs.append(pl.BlockSpec((8, step), lambda i, g: (0, i)))
-    operands.append(rays8)
-    if tmax_row is not None:
-        in_specs.append(pl.BlockSpec((1, step), lambda i, g: (0, i)))
-        operands.append(tmax_row)
-    for b in blocks:
-        bs = (gsz,) + b.shape[1:]
-        in_specs.append(pl.BlockSpec(
-            bs, lambda i, g, nd=b.ndim: (g,) + (0,) * (nd - 1)))
-        operands.append(b)
-    scratch = [pltpu.VMEM((cs, step), jnp.float32)]
+    rays8 = _pad_rays(jax.lax.stop_gradient(rays8), block)
+    n_pad = rays8.shape[1]
+    ids, cnt = visit_lists(rays8, accel.cluster_min, accel.cluster_max,
+                           block)
+    c, width = accel.num_clusters, ids.shape[1]
+    bounds = jnp.concatenate(
+        [accel.cluster_min, accel.cluster_max,
+         jnp.zeros((c, 2), accel.cluster_min.dtype)], axis=1)
+    tri = accel.tri_blocks
+    kernel = functools.partial(
+        _walk_kernel, cluster_size=cs, n_clusters=c, width=width, eps=eps,
+        nearest=nearest)
+    out_shape = [jax.ShapeDtypeStruct((n_pad,), jnp.int32)]
     if nearest:
-        scratch.append(pltpu.VMEM((cs, step), jnp.int32))
-        scratch = [scratch[0], scratch[1]] + [
-            pltpu.VMEM((cs, step), jnp.float32) for _ in range(n_attrs)]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=0,
-        grid=(n_steps, ng),
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((rows, step), lambda i, g: (0, i))
-            for rows in out_rows
-        ],
-        scratch_shapes=scratch,
-    )
-    out_shape = [
-        jax.ShapeDtypeStruct((rows, rp), dt)
-        for rows, dt in zip(out_rows, out_dtypes)
-    ]
-    return pl.pallas_call(
+        out_shape.insert(0, jax.ShapeDtypeStruct((n_pad,), jnp.float32))
+    out = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
         out_shape=out_shape,
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=120 * 1024 * 1024),
-    )(*operands)
-
-
-# ---------------------------------------------------------------------------
-# DMA-prefetch walk: explicit double-buffered visit-block fetches
-# ---------------------------------------------------------------------------
-
-
-def _dma_walk_kernel(cnt_ref, ids_ref, rays_ref, *refs, cluster_size,
-                     eps, variant, nearest, t_max, n_attrs=0,
-                     per_ray_tmax=False, ray_tile=RAY_TILE,
-                     ids_mode="prefetch", early_exit=False, ee_batch=None,
-                     camera=None):
-    """Dynamic visit-list walk with EXPLICIT double-buffered block DMA.
-
-    Round 4 priced the dynamic kernel's per-visit fixed cost at ~0.9 us
-    and eliminated every candidate except the dynamically-sliced VMEM
-    block reads that Mosaic cannot software-pipeline; the round-5
-    work-queue experiment (`_wq_kernel`) then re-measured the same
-    ~1 us/visit as per-operand PIPELINE bookkeeping when the fetches ride
-    index-map-driven grid operands instead (exp/NOTES_r5_wq.md) — naming
-    the cost: per-visit block-fetch MANAGEMENT, wherever it runs. This
-    kernel does the management by hand, which is the one place it can be
-    overlapped: the block table stays in HBM (`pltpu.ANY` — NO VMEM
-    residency requirement, any scene size), and the loop runs the classic
-    prefetch pattern with TWO static scratch slots — visit j computes
-    from its already-resident slot while visit j+2's 3-6 KB DMA flies.
-    Two visits per trip so slot addressing is STATIC (a dynamic
-    scratch[j%2] read would reintroduce the sliced-VMEM cost); an odd
-    visit count repeats the last visit once (idempotent for the
-    min-accumulate, same clamp rule as `_walk_kernel`'s unroll).
-
-    Geometry and attribute planes ride ONE combined [C, gr+A, CS] table
-    (one DMA per visit); only the flat-accumulator forms exist here — the
-    bounce/shadow workloads this kernel serves always run flat. Early
-    exit, overflow full-scan, ids modes, per-ray t_max, and the output
-    contract mirror `_walk_kernel` exactly (same tie rules, bit-identical
-    results)."""
-    refs = list(refs)
-    if early_exit:
-        tnear_ref = rays_ref
-        bbox_ref = refs.pop(0)
-        rays_ref = refs.pop(0)
-    else:
-        tnear_ref = bbox_ref = None
-    if camera is not None and len(camera) > 8 and camera[8]:
-        base_ref = refs.pop(0)  # chunked camera launches (see _walk_kernel)
-    else:
-        base_ref = None
-    tmax_ref = refs.pop(0) if per_ray_tmax else None
-    blk_hbm = refs.pop(0)
-    if nearest and n_attrs:
-        t_ref, i_ref, a_ref, sc0, sc1, sem = refs
-    else:
-        t_ref, i_ref, sc0, sc1, sem = refs
-        a_ref = None
-    rt = ray_tile
-    if camera is not None:
-        # Camera mode: the rays slot holds the [spp, 2] offset table and
-        # direction rows derive in-register per subtile (_camera_dirs);
-        # origin is the pinhole at 0 ("pmto" blocks fold it).
-        offs_ref = rays_ref
-        rays_ref = None
-        subtiles = camera[7]
-        rt_step = subtiles * rt
-    else:
-        rt_step = rays_ref.shape[1]
-        subtiles = rt_step // rt
-    cs = cluster_size
-    gr = 12 if variant in ("pmt", "pmto") else 9
-    i = pl.program_id(0)
-    scratch = (sc0, sc1)
-
-    for s in range(subtiles):
-        tile = i * subtiles + s
-        lo = s * rt
-        if camera is not None:
-            gtile = tile if base_ref is None else tile + base_ref[0, 0]
-            d_cols = _camera_dirs(gtile, rt, offs_ref, camera[:7])
-            o_cols = None
-        else:
-            rows = rays_ref[:, lo:lo + rt]
-            d_cols = tuple(rows[k:k + 1, :] for k in (4, 5, 6))
-            o_cols = tuple(rows[k:k + 1, :] for k in (0, 1, 2))
-        if per_ray_tmax:
-            t_lim = tmax_ref[:, lo:lo + rt]
-        elif nearest:
-            t_lim = None if t_max == float("inf") else t_max
-        else:
-            t_lim = t_max
-
-        def intersect(blk):
-            if variant == "pmto":
-                return _pmt_o_tile(d_cols, blk, eps, t_lim)
-            if variant == "pmt":
-                return _pmt_tile(o_cols, d_cols, blk, eps, t_lim)
-            return _mt_tile(o_cols, d_cols, blk, eps, t_lim)
-
-        n_total = blk_hbm.shape[0]
-        width = ids_ref.shape[1]
-        n_true = cnt_ref[s, 0] if ids_mode == "smem" else cnt_ref[tile]
-        overflow = n_true > width
-        trips = jnp.where(overflow, n_total, n_true)
-
-        def cluster_of(j):
-            jc = jnp.clip(j, 0, jnp.maximum(trips - 1, 0))
-            return jnp.where(
-                overflow, jc,
-                ids_ref[s if ids_mode == "smem" else tile,
-                        jnp.minimum(jc, width - 1)])
-
-        def start(slot, j):
-            pltpu.make_async_copy(
-                blk_hbm.at[cluster_of(j)], scratch[slot], sem.at[slot]
-            ).start()
-
-        def wait(slot):
-            pltpu.make_async_copy(
-                blk_hbm.at[0], scratch[slot], sem.at[slot]).wait()
-
-        sub_slot = jax.lax.broadcasted_iota(jnp.int32, (cs, 1), 0)
-
-        def visit(slot, j, acc):
-            """One visit from STATIC scratch slot `slot` — the flat-acc
-            update of _walk_kernel, fed from the combined block rows."""
-            blk_all = scratch[slot][:]
-            cl = cluster_of(j)
-            if nearest:
-                acc_t, acc_s = acc[0], acc[1]
-                acc_a = acc[2:]
-                t = intersect(blk_all[0:gr, :])
-                slot_id = cl * cs + sub_slot
-                tmin_v = jnp.min(t, axis=0, keepdims=True)
-                win = t == tmin_v
-                slot_v = jnp.min(jnp.where(win, slot_id, _BIG_ID), axis=0,
-                                 keepdims=True)
-                better = tmin_v < acc_t
-                eq = (tmin_v == acc_t) & (tmin_v < INF)
-                upd = better | (eq & (slot_v < acc_s))
-                acc_s = jnp.where(upd, slot_v, acc_s)
-                if n_attrs:
-                    win2 = win & (slot_id == slot_v)
-                    for k in range(n_attrs):
-                        rows_a = jnp.reshape(
-                            blk_all[gr + k:gr + k + 1, :], (cs, 1))
-                        a_v = jnp.max(jnp.where(win2, rows_a, -INF),
-                                      axis=0, keepdims=True)
-                        acc_a = acc_a[:k] + (jnp.where(
-                            upd, a_v, acc_a[k]),) + acc_a[k + 1:]
-                acc_t = jnp.minimum(acc_t, tmin_v)
-                return (acc_t, acc_s) + acc_a
-            t = intersect(blk_all[0:gr, :])
-            return (jnp.minimum(
-                acc[0], jnp.min(t, axis=0, keepdims=True)),)
-
-        def pair_body(m, acc):
-            # Guide-order double buffering, unrolled by two so slot
-            # addressing stays static: each fetch is issued one visit
-            # before its consumption (fetch j0+1 flies over visit j0's
-            # compute, fetch j0+2 over visit j0+1's), and a slot's write
-            # sits after its previous read in program order (Mosaic
-            # serializes the DMA against the ref's outstanding reads).
-            j0 = 2 * m
-            start(1, j0 + 1)
-            wait(0)
-            acc = visit(0, j0, acc)
-            start(0, j0 + 2)
-            wait(1)
-            acc = visit(1, j0 + 1, acc)
-            return acc
-
-        if nearest:
-            acc0 = (
-                jnp.full((1, rt), INF, dtype=jnp.float32),
-                jnp.full((1, rt), _BIG_ID, dtype=jnp.int32),
-            ) + tuple(jnp.zeros((1, rt), dtype=jnp.float32)
-                      for _ in range(n_attrs))
-        else:
-            acc0 = (jnp.full((1, rt), INF, dtype=jnp.float32),)
-
-        pair_trips = (trips + 1) // 2
-        any_work = trips > 0
-
-        @pl.when(any_work)
-        def _walk():
-            # Warm-up: visit 0's fetch only — every later fetch is issued
-            # by the pair body, exactly one visit ahead.
-            start(0, 0)
-            if early_exit:
-                ec = max(1, (ee_batch if ee_batch else EARLY_EXIT_BATCH)
-                         // 2)
-                alive_lane = (None if camera is not None
-                              else rays_ref[7:8, lo:lo + rt] != 0.0)
-                exit_row = _scene_exit_row(o_cols, d_cols, bbox_ref, rt)
-                id_row = s if ids_mode == "smem" else tile
-
-                def wcond(st):
-                    return (st[0] < pair_trips) & jnp.logical_not(st[1])
-
-                def wbody(st):
-                    m = st[0]
-                    acc = st[2:]
-                    for _ in range(ec):
-                        acc = pair_body(m, acc)
-                        m = m + 1
-                    per_lane = jnp.minimum(
-                        jnp.min(acc[0], axis=0, keepdims=True), exit_row)
-                    worst = (jnp.max(per_lane) if alive_lane is None else
-                             jnp.max(jnp.where(alive_lane, per_lane,
-                                               -INF)))
-                    nxt = jnp.where(
-                        overflow, -INF,
-                        tnear_ref[id_row, jnp.minimum(2 * m, width - 1)])
-                    return (m, worst < nxt) + acc
-
-                st = jax.lax.while_loop(
-                    wcond, wbody, (jnp.int32(0), jnp.bool_(False)) + acc0)
-                acc = st[2:]
-            else:
-                acc = jax.lax.fori_loop(0, pair_trips, pair_body, acc0)
-            # Drain: every pair leaves exactly one outstanding fetch on
-            # slot 0 (the j0+2 issued mid-pair); a dangling DMA semaphore
-            # would corrupt the next subtile's walk.
-            wait(0)
-            acc_t = acc[0]
-            t_ref[:, lo:lo + rt] = acc_t
-            if nearest:
-                i_ref[:, lo:lo + rt] = acc[1]
-                for k in range(n_attrs):
-                    a_ref[k:k + 1, lo:lo + rt] = acc[2 + k]
-            else:
-                i_ref[:, lo:lo + rt] = (acc_t < INF).astype(jnp.int32)
-
-        @pl.when(jnp.logical_not(any_work))
-        def _empty():
-            t_ref[:, lo:lo + rt] = jnp.full((1, rt), INF, jnp.float32)
-            i_ref[:, lo:lo + rt] = jnp.full(
-                (1, rt), _BIG_ID if nearest else 0, jnp.int32)
-            if nearest and n_attrs:
-                a_ref[:, lo:lo + rt] = jnp.zeros((n_attrs, rt),
-                                                 jnp.float32)
-
-
-# ---------------------------------------------------------------------------
-# Work-queue walk: the visit loop as a Pallas GRID axis
-# ---------------------------------------------------------------------------
-
-# Visits fused per work-queue grid step (independent streamed block
-# operands — each gets its own double-buffered DMA lane).
-WQ_U = 4
-
-
-def _wq_kernel(cnt_ref, ids_ref, rays_ref, *refs, cluster_size, eps,
-               variant, nearest, t_max, n_attrs=0, u=WQ_U, spt=32,
-               width=128, per_ray_tmax=False, ray_tile=RAY_TILE):
-    """WORK-QUEUE walk: one grid step = `u` visits of ONE ray tile.
-
-    The round-4 diagnosis left a ~0.9 us/visit fixed cost in the dynamic
-    walk loop that survived every ablation (exp/NOTES_r4_gi.md) — the
-    remaining suspects all lived around the per-trip dynamically-sliced
-    VMEM block reads that Mosaic cannot software-pipeline (each trip's
-    address depends on a scalar read inside the loop). This kernel deletes
-    the loop: the visit index becomes part of the GRID (step k = visits
-    [j0, j0+u) of tile k // spt), and each visit's kernel block arrives as
-    a GRID-SLICED OPERAND whose PrefetchScalarGridSpec index_map reads the
-    visit list — the Pallas pipeline computes next step's addresses ahead
-    and double-buffers the HBM->VMEM block fetches, so the body has NO
-    dynamic VMEM slicing at all. This is the TPU-native shape of the
-    reference's "hot loop touches only dense prefetched SoA data"
-    (simd_accel.rs:282-331).
-
-    Pacing: sum-paced over REAL visits plus pl.when-guarded idle steps
-    (tiles own ceil(width/u) steps each; a tile with cnt < width skips its
-    tail steps at scalar-sequencing cost, and their index maps clamp to
-    the last valid visit so no DMA re-issues). Out-of-range visits inside
-    a valid step clamp the same way — repeated visits are idempotent for
-    the min-accumulate. Accumulators are the [1|A, RT] OUTPUT blocks
-    themselves (flat-acc form): Pallas keeps an output block resident in
-    VMEM while consecutive steps map to it (steps of one tile are
-    consecutive by construction) and writes it back once at the tile
-    boundary. Init happens on each tile's first step.
-
-    Operands after the (cnt, ids) scalar prefetch: rays [8, RT] (sliced
-    per tile), optional per-ray tmax row [1, RT], then `u` combined block
-    operands — each [1, 12 + A, CS] sliced from the fused
-    (pmt rows | attr rows) table by its visit's index map. Outputs:
-    t [1, RT], slot [1, RT], optionally attrs [A, RT]."""
-    refs = list(refs)
-    tmax_ref = refs.pop(0) if per_ray_tmax else None
-    blk_refs = [refs.pop(0) for _ in range(u)]
-    if nearest and n_attrs:
-        t_ref, i_ref, a_ref = refs
-    else:
-        t_ref, i_ref = refs
-        a_ref = None
-    rt = ray_tile
-    cs = cluster_size
-    gr = 12 if variant in ("pmt", "pmto") else 9  # geometry rows per block
-    k = pl.program_id(0)
-    t_loc = k // spt
-    j0 = (k % spt) * u
-    cw = jnp.minimum(cnt_ref[t_loc], width)
-
-    @pl.when(k % spt == 0)
-    def _init():
-        t_ref[:] = jnp.full((1, rt), INF, jnp.float32)
-        # Occlusion reads i as a BOOLEAN (occ != 0): a zero-visit tile
-        # must init it to 0, not the nearest path's BIG_ID miss slot.
-        i_ref[:] = jnp.full((1, rt), _BIG_ID if nearest else 0, jnp.int32)
-        if a_ref is not None:
-            a_ref[:] = jnp.zeros((n_attrs, rt), jnp.float32)
-
-    @pl.when(j0 < cw)
-    def _run():
-        rows = rays_ref[:]
-        d_cols = tuple(rows[kk:kk + 1, :] for kk in (4, 5, 6))
-        o_cols = tuple(rows[kk:kk + 1, :] for kk in (0, 1, 2))
-        if per_ray_tmax:
-            t_lim = tmax_ref[:]
-        elif nearest:
-            t_lim = None if t_max == float("inf") else t_max
-        else:
-            t_lim = t_max
-
-        def intersect(blk):
-            if variant == "pmto":
-                return _pmt_o_tile(d_cols, blk, eps, t_lim)
-            if variant == "pmt":
-                return _pmt_tile(o_cols, d_cols, blk, eps, t_lim)
-            return _mt_tile(o_cols, d_cols, blk, eps, t_lim)
-
-        if nearest:
-            sub_slot = jax.lax.broadcasted_iota(jnp.int32, (cs, 1), 0)
-            acc_t = t_ref[:]
-            acc_s = i_ref[:]
-            acc_a = ([a_ref[kk:kk + 1, :] for kk in range(n_attrs)]
-                     if n_attrs else [])
-            for uu in range(u):
-                # Same clamp as the index maps (launcher) so the slot id
-                # matches the fetched block.
-                jc = jnp.clip(j0 + uu, 0, jnp.maximum(cw - 1, 0))
-                cid = ids_ref[t_loc, jnp.minimum(jc, width - 1)]
-                blk = blk_refs[uu][0]          # [gr + A, CS], static read
-                tvis = intersect(blk[0:gr, :])  # [CS, RT]
-                slot = cid * cs + sub_slot
-                tmin_v = jnp.min(tvis, axis=0, keepdims=True)
-                win = tvis == tmin_v
-                slot_v = jnp.min(jnp.where(win, slot, _BIG_ID), axis=0,
-                                 keepdims=True)
-                better = tmin_v < acc_t
-                # Same tie rule as flat_acc: global (min t, min slot),
-                # INF == INF never counts as a tie.
-                eq = (tmin_v == acc_t) & (tmin_v < INF)
-                upd = better | (eq & (slot_v < acc_s))
-                acc_s = jnp.where(upd, slot_v, acc_s)
-                if n_attrs:
-                    win2 = win & (slot == slot_v)
-                    for kk in range(n_attrs):
-                        rows_a = jnp.reshape(blk[gr + kk:gr + kk + 1, :],
-                                             (cs, 1))
-                        a_v = jnp.max(jnp.where(win2, rows_a, -INF),
-                                      axis=0, keepdims=True)
-                        acc_a[kk] = jnp.where(upd, a_v, acc_a[kk])
-                acc_t = jnp.minimum(acc_t, tmin_v)
-            t_ref[:] = acc_t
-            i_ref[:] = acc_s
-            for kk in range(n_attrs):
-                a_ref[kk:kk + 1, :] = acc_a[kk]
-        else:
-            acc_t = t_ref[:]
-            for uu in range(u):
-                tvis = intersect(blk_refs[uu][0][0:gr, :])
-                acc_t = jnp.minimum(
-                    acc_t, jnp.min(tvis, axis=0, keepdims=True))
-            t_ref[:] = acc_t
-            i_ref[:] = (acc_t < INF).astype(jnp.int32)
-
-
-def _launch_wq(cnt, ids, rays8, wq_blocks, interpret, *, cluster_size,
-               eps, variant, nearest, t_max, n_attrs=0, u=WQ_U,
-               tmax_row=None, ray_tile=RAY_TILE):
-    """Launch `_wq_kernel` over grid (n_tiles * steps_per_tile,),
-    chunking tiles so the scalar-prefetched visit lists fit SMEM (same
-    budget discipline as `_launch_walk`). Walks the first min(cnt, width)
-    visits of each tile — the caller owns the overflow residual."""
-    nt_all, width = ids.shape
-    spt = -(-width // u)
-    max_tiles = max(1, _SMEM_IDS_BUDGET_BYTES // (4 * width))
-    outs = []
-    for lo in range(0, nt_all, max_tiles):
-        hi = min(lo + max_tiles, nt_all)
-        nt = hi - lo
-        cnt_j = cnt[lo:hi]
-        ids_j = ids[lo:hi]
-        rays_j = jax.lax.slice_in_dim(rays8, lo * ray_tile, hi * ray_tile,
-                                      axis=1)
-        tmax_j = (jax.lax.slice_in_dim(tmax_row, lo * ray_tile,
-                                       hi * ray_tile, axis=1)
-                  if tmax_row is not None else None)
-        out_rows = [1, 1] + ([n_attrs] if nearest and n_attrs else [])
-        out_dtypes = [jnp.float32, jnp.int32] + (
-            [jnp.float32] if nearest and n_attrs else [])
-        in_specs = [pl.BlockSpec((8, ray_tile),
-                                 lambda k, c, i: (0, k // spt))]
-        operands = [rays_j]
-        if tmax_j is not None:
-            in_specs.append(pl.BlockSpec((1, ray_tile),
-                                         lambda k, c, i: (0, k // spt)))
-            operands.append(tmax_j)
-        bshape = (1,) + wq_blocks.shape[1:]
-        for uu in range(u):
-            def im(k, c, i, _uu=uu):
-                t = k // spt
-                cw = jnp.minimum(c[t], width)
-                jc = jnp.clip((k % spt) * u + _uu, 0,
-                              jnp.maximum(cw - 1, 0))
-                return (i[t, jnp.minimum(jc, width - 1)], 0, 0)
-            in_specs.append(pl.BlockSpec(bshape, im))
-            operands.append(wq_blocks)
-        kern = functools.partial(
-            _wq_kernel, cluster_size=cluster_size, eps=eps,
-            variant=variant, nearest=nearest, t_max=t_max,
-            n_attrs=n_attrs if nearest else 0, u=u, spt=spt, width=width,
-            per_ray_tmax=tmax_j is not None, ray_tile=ray_tile)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(nt * spt,),
-            in_specs=in_specs,
-            out_specs=[
-                pl.BlockSpec((rows, ray_tile), lambda k, c, i: (0, k // spt))
-                for rows in out_rows
-            ],
-        )
-        out_shape = [
-            jax.ShapeDtypeStruct((rows, nt * ray_tile), dt)
-            for rows, dt in zip(out_rows, out_dtypes)
-        ]
-        outs.append(pl.pallas_call(
-            kern,
-            grid_spec=grid_spec,
-            out_shape=out_shape,
-            interpret=interpret,
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=64 * 1024 * 1024),
-        )(cnt_j, ids_j, *operands))
-    if len(outs) == 1:
-        return outs[0]
-    return tuple(
-        jnp.concatenate([ch[i] for ch in outs], axis=1)
-        for i in range(len(outs[0]))
-    )
-
-
-def _launch_single(kernel, cnt, ids, rays8, blocks, interpret, n_attrs=0,
-                   tmax_row=None, ray_tile=RAY_TILE, subtiles=SUBTILES,
-                   ids_mode="prefetch", tnear=None, bbox=None,
-                   lane_bounds=None, block_space=None, scratch_shapes=None):
-    rp = rays8.shape[1]
-    step = ray_tile * subtiles
-    n_steps = rp // step
-    out_rows = [1, 1] + ([n_attrs] if n_attrs else [])
-    out_dtypes = [jnp.float32, jnp.int32] + ([jnp.float32] if n_attrs else [])
-    sliced = [(rays8, 8)] + ([(tmax_row, 1)] if tmax_row is not None else [])
-    w = ids.shape[1]
-    if ids_mode == "smem":
-        # cnt/ids (and tnear) stream per grid step as [subtiles, ...] SMEM
-        # slices — no whole-array SMEM residency, so no launch chunking.
-        # cnt rides as a [subtiles, 1] column (Mosaic wants SMEM arrays
-        # 2-D; the kernel reads cnt_ref[s, 0] in this mode).
-        n_prefetch = 0
-        smem = functools.partial(pl.BlockSpec, memory_space=pltpu.SMEM)
-        in_specs = [smem((subtiles, 1), lambda i, *_: (i, 0)),
-                    smem((subtiles, w), lambda i, *_: (i, 0))]
-        operands = (cnt[:, None], ids)
-        if tnear is not None:
-            in_specs.append(smem((subtiles, w), lambda i, *_: (i, 0)))
-            in_specs.append(smem((2, 3), lambda i, *_: (0, 0)))
-            operands = (cnt[:, None], ids, tnear, bbox)
-    elif ids_mode == "vmem":
-        n_prefetch = 1
-        in_specs = [pl.BlockSpec((subtiles, w), lambda i, *_: (i, 0))]
-        operands = (cnt, ids)
-        if tnear is not None:
-            # early-exit needs the entry-t table as positional operand 3
-            # (the kernel pops it before the ray block). It rides SMEM
-            # even in vmem mode: the kernel reads it one scalar at a time,
-            # and scalar reads from a VMEM operand crash the remote
-            # Mosaic compiler.
-            smem = functools.partial(pl.BlockSpec, memory_space=pltpu.SMEM)
-            in_specs.append(smem((subtiles, w), lambda i, *_: (i, 0)))
-            in_specs.append(smem((2, 3), lambda i, *_: (0, 0)))
-            operands = (cnt, ids, tnear, bbox)
-    elif tnear is not None:
-        n_prefetch = 3
-        smem = functools.partial(pl.BlockSpec, memory_space=pltpu.SMEM)
-        in_specs = [smem((2, 3), lambda i, *_: (0, 0))]
-        operands = (cnt, ids, tnear, bbox)
-    else:
-        n_prefetch = 2
-        in_specs = []
-        operands = (cnt, ids)
-    lcb_specs, lcb_ops = [], ()
-    if lane_bounds is not None:
-        lcb = functools.partial(pl.BlockSpec, memory_space=pltpu.SMEM)
-        lcb_specs = [lcb(lane_bounds.shape, lambda i, *_: (0, 0))]
-        lcb_ops = (lane_bounds,)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=n_prefetch,
-        grid=(n_steps,),
-        in_specs=in_specs + [
-            pl.BlockSpec((rows, step), lambda i, *_: (0, i))
-            for _, rows in sliced
-        ] + lcb_specs + [
-            # block_space=pltpu.ANY: the table stays in HBM and the
-            # kernel DMAs visit blocks itself (_dma_walk_kernel) — no
-            # VMEM residency at any scene size.
-            (pl.BlockSpec(memory_space=block_space)
-             if block_space is not None else
-             pl.BlockSpec(b.shape, lambda i, *_, nd=b.ndim: (0,) * nd))
-            for b in blocks
+        grid=(n_pad // block,),
+        in_specs=[
+            pl.BlockSpec((1,), lambda i: (i,)),
+            pl.BlockSpec((1, width), lambda i: (i, 0)),
+            pl.BlockSpec(bounds.shape, lambda i: (0, 0)),
+            pl.BlockSpec(tri.shape, lambda i: (0, 0, 0)),
+            pl.BlockSpec((8, block), lambda i: (0, i)),
         ],
-        out_specs=[
-            pl.BlockSpec((rows, step), lambda i, *_: (0, i))
-            for rows in out_rows
-        ],
-        scratch_shapes=scratch_shapes or [],
-    )
-    out_shape = [
-        jax.ShapeDtypeStruct((rows, rp), dt)
-        for rows, dt in zip(out_rows, out_dtypes)
-    ]
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=out_shape,
+        out_specs=[pl.BlockSpec((block,), lambda i: (i,))] * len(out_shape),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
         interpret=interpret,
-        # Mosaic's default scoped-VMEM limit is 16 MB; the resident block
-        # tables legitimately use most of the chip's 128 MB (the grouping
-        # in _walk_groups caps them at _PALLAS_BLOCK_BUDGET_BYTES).
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=120 * 1024 * 1024),
-    )(*operands, *[a for a, _ in sliced], *lcb_ops, *blocks)
+        name="nearest_walk" if nearest else "occlusion_walk",
+    )(cnt, ids, bounds, tri, rays8)
+    if nearest:
+        return out[0][:n], out[1][:n]
+    return out[0][:n]
 
 
 # ---------------------------------------------------------------------------
-# Lazy differentiable t: forward = kernel value, backward = re-derivation
+# Gradient rule: forward = kernel t, backward = live-vertex re-derivation
 # ---------------------------------------------------------------------------
 
 
 @jax.custom_vjp
-def _lazy_t(verts, o, d, tv_packed, slot, hit, t_k):
+def _lazy_t(verts, o, d, tri_v, tri_id, hit, t_k):
     return t_k
 
 
-def _lazy_t_fwd(verts, o, d, tv_packed, slot, hit, t_k):
-    return t_k, (verts, o, d, tv_packed, slot, hit)
+def _lazy_t_fwd(verts, o, d, tri_v, tri_id, hit, t_k):
+    return t_k, (verts, o, d, tri_v, tri_id, hit)
 
 
 def _lazy_t_bwd(res, g):
-    verts, o, d, tv_packed, slot, hit = res
-    tvs = tv_packed[jnp.where(hit, slot, 0)]  # [R, 3] winning-tri verts
+    verts, o, d, tri_v, tri_id, hit = res
+    tvs = tri_v[jnp.where(hit, tri_id, 0)]  # [R, 3] winning-tri verts
     va = verts[tvs[:, 0]]
     vb = verts[tvs[:, 1]]
     vc = verts[tvs[:, 2]]
 
     def t_math(va_, vb_, vc_, o_, d_):
         t_d, _ = moller_trumbore(
-            o_, d_, TriangleSoA(va_, vb_ - va_, vc_ - va_), INF, 1e-8
-        )
+            o_, d_, TriangleSoA(va_, vb_ - va_, vc_ - va_), INF, 1e-8)
         return jnp.where(hit & jnp.isfinite(t_d), t_d, 0.0)
 
     _, vjp = jax.vjp(t_math, va, vb, vc, o, d)
     dva, dvb, dvc, do, dd = vjp(jnp.where(hit, g, 0.0))
-    # Accumulate per-corner gradients into the vertex pool with ONE
-    # sort-based segment reduction over all 3 corners (ops/scatter.py —
-    # the serial `.at[].add` was most of backward's cost). Dead lanes
+    # Per-corner gradients reach the vertex pool through one sort-based
+    # segment reduction over all 3 corners (ops/scatter.py); dead lanes
     # target the drop bucket n_v.
     from raytracing_tpu.ops.scatter import segment_scatter_add
 
@@ -2398,1386 +401,9 @@ def _lazy_t_bwd(res, g):
 _lazy_t.defvjp(_lazy_t_fwd, _lazy_t_bwd)
 
 
-def _objid_expand(accel, attrs_k, hit):
-    """objid-mode kernel planes (normal(3) | obj_id) -> the full 9-plane
-    rows via a select chain over the (static, small) object table —
-    elementwise ops, no gather. Miss lanes zeroed (obj_id plane 0 would
-    otherwise resolve them to object 0's row)."""
-    if accel.attr_tables is None:
-        return attrs_k
-    obj = attrs_k[3].astype(jnp.int32)  # [N]
-    tbl = accel.attr_tables  # [O, 6]
-    rest = jnp.zeros((6, obj.shape[0]), dtype=attrs_k.dtype)
-    for k in range(tbl.shape[0]):
-        rest = jnp.where(obj[None, :] == k, tbl[k][:, None], rest)
-    rest = jnp.where(hit[None, :], rest, 0.0)
-    return jnp.concatenate([attrs_k[:3], rest], axis=0)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0,))
-def _shaded_walk(static, verts, normals, colors, materials, o, d, rays8,
-                 tri_v, accel, shared_origin):
-    """Differentiable (t, slot, attrs) from the cluster walk.
-
-    PRIMAL (renders nobody differentiates): one walk with the shading
-    planes only — zero extra cost. Under differentiation, the VJP's
-    forward runs the SAME walk with the 11 backward grad planes riding
-    alongside (attr_kind="both": v0|e1|e2|tri_id|obj_id accumulate in
-    the kernel next to the shade planes), so BACKWARD needs NO second
-    traversal at all — round 2's grad-planes re-walk becomes elementwise
-    re-derivation + sorted segment reductions over the saved planes.
-    Gradients reach verts (via the re-derived Möller–Trumbore t),
-    normals, colors, materials, and the ray origins/directions;
-    traversal decisions stay detached (SURVEY.md §7)."""
-    eps, variant, t_cap, early_exit, interpret, has_so, rt, lc, wq = static
-    t_k, slot, attrs_k = nearest_hit_attrs_soa(
-        accel, rays8, eps, interpret, variant, t_cap=t_cap,
-        early_exit=early_exit,
-        shared_origin=shared_origin if has_so else None, ray_tile=rt,
-        lane_cull=lc, wq=wq)
-    hit = jnp.isfinite(t_k)
-    return t_k, slot, _objid_expand(accel, attrs_k, hit).T
-
-
-def _shaded_walk_fwd(static, verts, normals, colors, materials, o, d,
-                     rays8, tri_v, accel, shared_origin):
-    eps, variant, t_cap, early_exit, interpret, has_so, rt, lc, wq = static
-    t_k, slot, both = nearest_hit_attrs_soa(
-        accel, rays8, eps, interpret, variant, t_cap=t_cap,
-        early_exit=early_exit,
-        shared_origin=shared_origin if has_so else None,
-        attr_kind="both", ray_tile=rt, lane_cull=lc, wq=wq)
-    a_rows = accel.attr_blocks.shape[1]
-    planes = both[a_rows:]          # [11, N] backward grad planes
-    hit = jnp.isfinite(t_k)
-    attrs_k = _objid_expand(accel, both[:a_rows], hit)
-    res = (o, d, hit, planes, tri_v, verts.shape[0], normals.shape[0],
-           materials.shape[0], jax.tree_util.tree_map(lambda _: None,
-                                                      accel))
-    return (t_k, slot, attrs_k.T), res
-
-
-def _shaded_walk_bwd(static, res, cots):
-    from raytracing_tpu.ops.scatter import segment_scatter_add
-
-    g_t, _g_slot, g_a = cots  # [N], (int cot ignored), [N, 9]
-    o, d, hit, planes, tri_v, n_v, t_rows, n_obj, none_accel = res
-    v0 = planes[0:3].T
-    e1p = planes[3:6].T
-    e2p = planes[6:9].T
-    triid = planes[9].astype(jnp.int32)
-    obj = planes[10].astype(jnp.int32)
-
-    def t_math(va_, vb_, vc_, o_, d_):
-        t_d, _ = moller_trumbore(
-            o_, d_, TriangleSoA(va_, vb_ - va_, vc_ - va_), INF, 1e-8)
-        return jnp.where(hit & jnp.isfinite(t_d), t_d, 0.0)
-
-    va, vb, vc = v0, v0 + e1p, v0 + e2p
-    _, vjp = jax.vjp(t_math, va, vb, vc, o, d)
-    dva, dvb, dvc, do, dd = vjp(jnp.where(hit, g_t, 0.0))
-    # rays -> per-(corner, triangle) -> vertex pool: two sorted segment
-    # reductions; dead/miss lanes target the drop buckets.
-    t3 = 3 * t_rows
-    idx3 = jnp.concatenate(
-        [jnp.where(hit, triid + k * t_rows, t3) for k in range(3)])
-    dv3 = jnp.concatenate([dva, dvb, dvc], axis=0)
-    dtri = segment_scatter_add(t3, idx3, dv3)  # [3T, 3]
-    flat_targets = jnp.concatenate(
-        [tri_v[:, 0], tri_v[:, 1], tri_v[:, 2]]).astype(jnp.int32)
-    dverts = segment_scatter_add(n_v, flat_targets, dtri)
-    # attrs: normal/color rows route by triangle id, material by object.
-    gm = jnp.where(hit[:, None], g_a, 0.0)
-    idv = jnp.where(hit, triid, t_rows)
-    objv = jnp.where(hit, obj, n_obj)
-    dnc = segment_scatter_add(t_rows, idv, gm[:, 0:6])
-    dm = segment_scatter_add(n_obj, objv, gm[:, 6:9])
-    return (dverts, dnc[:, 0:3], dnc[:, 3:6], dm, do, dd, None, None,
-            none_accel, None)
-
-
-_shaded_walk.defvjp(_shaded_walk_fwd, _shaded_walk_bwd)
-
-
-def grad_planes_soa(accel, rays8, eps=1e-8, interpret=None,
-                    variant=DEFAULT_VARIANT):
-    """BACKWARD-ONLY nearest-hit walk emitting the winning triangle's
-    v0(3) | e1(3) | e2(3) | tri_id | obj_id planes (accel.grad_blocks).
-    One extra traversal (~ms) replaces ~12 ray-count-sized serial gathers
-    (~hundreds of ms at wavefront sizes) in the lazy VJP. Deterministic:
-    the winner matches the forward walk exactly (same min/tie rules).
-    Returns (t [N], planes [11, N]); planes are 0 on miss lanes except
-    that callers must mask by their own hit/cotangent anyway."""
-    if interpret is None:
-        interpret = not _on_tpu()
-    rays8 = jax.lax.stop_gradient(rays8)
-    rp, r = _pad_rays_soa(rays8)
-    t, slot, planes = _walk_groups(accel, rp, eps, interpret, variant,
-                                   nearest=True, t_max=float("inf"),
-                                   n_attrs=11, attr_kind="grad")
-    t, slot, planes = _merge_rest_nearest(accel, rp, t, slot, planes, eps,
-                                          11, attr_kind="grad")
-    return t[0, :r], planes[:, :r]
-
-
-# ---------------------------------------------------------------------------
-# Cluster grouping: >VMEM scenes as a sequence of resident-group walks
-# ---------------------------------------------------------------------------
-
-
-def _attr_table(accel: ClusterAccel, variant: str, attr_kind: str):
-    if attr_kind == "grad":
-        return accel.grad_blocks
-    if attr_kind == "both":
-        # Shade planes followed by the backward grad planes — ONE walk
-        # serves both when the render is being differentiated (see
-        # _shaded_walk_fwd). Concat is trace-time XLA; [C, A+11, CS] is
-        # ~2 MB at teapot size.
-        if variant == "pmtt":
-            grad_t = jnp.transpose(accel.grad_blocks, (0, 2, 1))
-            return jnp.concatenate([accel.attr_t_blocks, grad_t], axis=2)
-        return jnp.concatenate([accel.attr_blocks, accel.grad_blocks],
-                               axis=1)
-    return (accel.attr_t_blocks if variant == "pmtt"
-            else accel.attr_blocks)
-
-
-def _vmem_group_clusters(accel: ClusterAccel, variant: str,
-                         n_attrs: int, attr_kind: str = "shade",
-                         budget: int | None = None) -> int:
-    """Max clusters whose kernel blocks fit the VMEM budget at once.
-    VMEM pads each cluster's [rows, CS] block to [ceil(rows/8)*8,
-    ceil(CS/128)*128] floats."""
-    from raytracing_tpu.accel.packets import _PALLAS_BLOCK_BUDGET_BYTES
-
-    def per_cluster(a):
-        s = a.shape
-        return 4 * (-(-s[1] // 8) * 8) * (-(-s[2] // 128) * 128)
-
-    blocks = {"woop": accel.woop_blocks,
-              "pmt": accel.pmt_blocks,
-              "pmtt": accel.pmt_t_blocks}.get(variant, accel.tri_blocks)
-    b = per_cluster(blocks)
-    if n_attrs:
-        b += per_cluster(_attr_table(accel, variant, attr_kind))
-    return max(256, (budget or _PALLAS_BLOCK_BUDGET_BYTES) // b)
-
-
-# Camera mode carries no ray-pack operands (rays derive in-register), so
-# its resident block budget can run closer to the chip's 128 MB VMEM: a
-# 1.6M-triangle scene's cs=128 pmt table (101 MB) compiles and runs
-# resident at this budget on v5e.
-_CAMERA_BLOCK_BUDGET_BYTES = 106 * 1024 * 1024
-
-# Camera-mode block fetch: "auto" (resident when the table fits the VMEM
-# budget, DMA-prefetch otherwise), "resident", or "dma" (force — exp
-# harnesses). See _dma_walk_kernel.
-_CAMERA_FETCH = "auto"
-
-
-# lane_cull SMEM cap: the per-cluster AABB rows ([C, 6] f32) must fit
-# SMEM next to the visit lists; above this cluster count the pre-test is
-# disabled (the walk is exact either way).
-_LANE_CULL_MAX_C = 8192
-# How lane culling runs: "kernel" (default) — the per-visit lax.cond
-# pre-test inside the walk; "refine" — phase 2.5 dense XLA per-ray list
-# refinement (_per_ray_refine, no in-kernel control flow; exact and
-# uncapped in C, but its [tiles, W, RT] pass costs real HBM traffic
-# in-context: the full frame measured 1.88 s kernel vs 2.28 s refine
-# even though the two tie in isolated walk timings). The kernel mode is
-# SMEM-capped at _LANE_CULL_MAX_C clusters; beyond that lane culling
-# silently disables (exact either way).
-_LANE_CULL_MODE = "kernel"
-# DIAGNOSTIC ONLY (exp/ harnesses): inverted lane-cull bounds make every
-# visit skip, timing the walk's loop + slab + cond floor with zero
-# intersections. Results are garbage (all-miss); never set in library
-# code.
-_LANE_CULL_FORCE_SKIP = False
-
-
-# Which implementation the public `wq` flag selects: "dma" (the
-# DMA-prefetch dynamic walk, _dma_walk_kernel — the measured winner) or
-# "grid" (the visit-loop-as-grid-axis experiment, _wq_kernel — kept as
-# the committed measurement that named the per-visit cost; see
-# exp/NOTES_r5_wq.md). Both are bit-identical to the dynamic kernel.
-_WQ_IMPL = "dma"
-
-
-def _pad_block_rows(blocks):
-    """Pad a combined [C, rows, CS] block table's ROW dim to a multiple
-    of the f32 sublane tile (8): the per-visit DMA writes the whole
-    [rows, CS] slice into an (8, 128)-tiled VMEM scratch, and a
-    partial-sublane-tile write FAULTS the device at runtime (observed:
-    the 12-row occlusion table crashed the TPU worker while the 16-row
-    nearest table ran). Zero rows are inert — the kernel slices the rows
-    it knows about."""
-    rows = blocks.shape[1]
-    pad = (-rows) % 8
-    if pad:
-        blocks = jnp.concatenate(
-            [blocks, jnp.zeros((blocks.shape[0], pad, blocks.shape[2]),
-                               blocks.dtype)], axis=1)
-    return blocks
-
-
-def _walk_dma(accel, rp, eps, interpret, variant, nearest, t_max, n_attrs,
-              tmax_row=None, attr_kind="shade", shared_origin=None,
-              ray_tile=RAY_TILE, early_exit=None):
-    """DMA-prefetch traversal (see `_dma_walk_kernel`): phase 1 frustum
-    lists, phase 2.5 per-ray entered refinement (non-entered visits would
-    cost full intersections here, there is no in-loop cond to skip
-    them) — the gather-free dense form (`_refine_dense`) below
-    `_REFINE_DENSE_MAX_C` clusters, the gathered-candidate form
-    (`_lane_refine_lists`) above — then ONE launch of the double-buffered
-    dynamic walk over the refined lists with the combined block table
-    left in HBM. Overflow tiles full-scan in-kernel (streaming makes
-    that legal at any C); the batched front-to-back early exit rides the
-    refined entry-t lower bounds unchanged."""
-    cs = accel.cluster_size
-    c_total = accel.num_clusters
-    if shared_origin is not None and variant == "pmt":
-        variant = "pmto"
-    base = (accel.pmt_blocks if variant in ("pmt", "pmto")
-            else accel.tri_blocks)
-    if variant == "pmto":
-        base = _fold_origin(base, shared_origin)
-    blocks = base
-    if n_attrs:
-        blocks = jnp.concatenate(
-            [base, _attr_table(accel, "pmt", attr_kind)], axis=1)
-    blocks = _pad_block_rows(blocks)
-    t_cap = t_max if (nearest and t_max != float("inf")) else None
-    if c_total <= _REFINE_DENSE_MAX_C:
-        # Gather-free dense refinement fused into phase 2's top_k; ONE
-        # extents pass serves the alive flags and the frustum lists.
-        lo_e, hi_e = _tile_extents_pallas(rp, ray_tile, interpret)
-        tile_alive = hi_e[:, 7] > 0.0
-        entered = _refine_dense(rp, accel.cluster_min, accel.cluster_max,
-                                ray_tile, interpret, t_cap=t_cap,
-                                tile_alive=tile_alive)
-        ids, tnear, cnt = _visit_lists_from_extents(
-            lo_e[:, 0:3], hi_e[:, 0:3], lo_e[:, 4:7], hi_e[:, 4:7],
-            accel.cluster_min, accel.cluster_max, t_cap=t_cap,
-            extra_mask=entered)
-        cnt = jnp.where(tile_alive, cnt, 0)
-    else:
-        ids, tnear, cnt = _tile_visit_lists_soa(
-            rp, accel.cluster_min, accel.cluster_max, ray_tile,
-            interpret=interpret, t_cap=t_cap)
-        ids, tnear, cnt = _lane_refine_lists(
-            rp, ids, tnear, cnt, accel.cluster_min, accel.cluster_max,
-            ray_tile, c_total, interpret, t_cap=t_cap)
-    early = (nearest and tmax_row is None
-             and (c_total > _EARLY_EXIT_MIN_CLUSTERS
-                  if early_exit is None else bool(early_exit)))
-    mode = IDS_MODE
-    if mode == "prefetch":
-        eb = 8 if early else 4
-        max_t = max(SUBTILES, _SMEM_IDS_BUDGET_BYTES
-                    // (eb * ids.shape[1]) // SUBTILES * SUBTILES)
-        if ids.shape[0] > max_t:
-            mode = "smem"
-    kern = functools.partial(
-        _dma_walk_kernel, cluster_size=cs, eps=eps, variant=variant,
-        nearest=nearest, t_max=t_max, n_attrs=n_attrs,
-        per_ray_tmax=tmax_row is not None, ray_tile=ray_tile,
-        ids_mode=mode, early_exit=early, ee_batch=_ee_batch_for(cs))
-    scratch = [
-        pltpu.VMEM((blocks.shape[1], cs), blocks.dtype),
-        pltpu.VMEM((blocks.shape[1], cs), blocks.dtype),
-        pltpu.SemaphoreType.DMA((2,)),
-    ]
-    bbox = (jnp.stack([jnp.min(accel.cluster_min, axis=0),
-                       jnp.max(accel.cluster_max, axis=0)])
-            if early else None)
-    # HBM explicitly, not ANY: the compiler resolves ANY to VMEM when the
-    # table fits, and a manual DMA slice of a <128-lane block out of a
-    # VMEM-tiled memref crashes Mosaic; from HBM the fetch is a plain
-    # (re-layouting) DMA.
-    out = _launch_walk(kern, cnt, ids, rp, (blocks,), interpret,
-                       n_attrs=n_attrs, tmax_row=tmax_row,
-                       ray_tile=ray_tile, subtiles=SUBTILES,
-                       ids_mode=mode, tnear=tnear if early else None,
-                       bbox=bbox, block_space=pltpu.HBM,
-                       scratch_shapes=scratch)
-    if nearest:
-        return out[0], out[1], out[2] if n_attrs else None
-    return out[0], out[1], None
-
-
-def _walk_wq(accel, rp, eps, interpret, variant, nearest, t_max, n_attrs,
-             tmax_row=None, attr_kind="shade", shared_origin=None,
-             ray_tile=RAY_TILE):
-    """Work-queue traversal (see `_wq_kernel`): phase 1 frustum lists,
-    phase 2.5 per-ray entered refinement (`_lane_refine_lists` — the wq
-    grid's step capacity prices off LIST LENGTH, so hull overcounting
-    would cost full intersections, not cond skips), then the wq launch
-    over the refined lists plus a residual dynamic-kernel launch covering
-    overflow tiles (cnt > width), whose lists were truncated. Exact: the
-    residual full-scans exactly the tiles the wq pass under-walked, and
-    the elementwise nearest/or merge is associative."""
-    cs = accel.cluster_size
-    c_total = accel.num_clusters
-    if shared_origin is not None and variant == "pmt":
-        variant = "pmto"
-    base = (accel.pmt_blocks if variant in ("pmt", "pmto")
-            else accel.tri_blocks)
-    if variant == "pmto":
-        base = _fold_origin(base, shared_origin)
-    attrs_tbl = None
-    wq_blocks = base
-    if n_attrs:
-        attrs_tbl = _attr_table(accel, "pmt", attr_kind)
-        wq_blocks = jnp.concatenate([base, attrs_tbl], axis=1)
-    t_cap = t_max if (nearest and t_max != float("inf")) else None
-    ids, tnear, cnt = _tile_visit_lists_soa(
-        rp, accel.cluster_min, accel.cluster_max, ray_tile,
-        interpret=interpret, t_cap=t_cap)
-    ids, tnear, cnt = _lane_refine_lists(
-        rp, ids, tnear, cnt, accel.cluster_min, accel.cluster_max,
-        ray_tile, c_total, interpret, t_cap=t_cap)
-    out = _launch_wq(cnt, ids, rp, wq_blocks, interpret, cluster_size=cs,
-                     eps=eps, variant=variant, nearest=nearest,
-                     t_max=t_max, n_attrs=n_attrs, tmax_row=tmax_row,
-                     ray_tile=ray_tile)
-    if nearest:
-        t_g, s_g = out[0], out[1]
-        a_g = out[2] if n_attrs else None
-    else:
-        t_g, s_g, a_g = out[0], out[1], None
-    width = ids.shape[1]
-    if c_total > width:
-        # Overflow residual: tiles whose flagged count exceeded the list
-        # width were only partially walked above — rescan THEM (and only
-        # them: everyone else gets cnt 0 = an empty loop) with the
-        # dynamic kernel's full-scan fallback.
-        cnt_res = jnp.where(cnt > width, cnt, 0)
-        mode = IDS_MODE
-        if mode == "prefetch":
-            max_t = max(SUBTILES, _SMEM_IDS_BUDGET_BYTES
-                        // (4 * width) // SUBTILES * SUBTILES)
-            if ids.shape[0] > max_t:
-                mode = "smem"
-        kern = functools.partial(
-            _walk_kernel, cluster_size=cs, eps=eps, variant=variant,
-            nearest=nearest, t_max=t_max, n_attrs=n_attrs, unroll=1,
-            per_ray_tmax=tmax_row is not None, ray_tile=ray_tile,
-            ids_mode=mode, early_exit=False, flat_acc=True,
-            lane_cull=False)
-        blocks = (base,) + ((attrs_tbl,) if n_attrs else ())
-        out2 = _launch_walk(kern, cnt_res, ids, rp, blocks, interpret,
-                            n_attrs=n_attrs, tmax_row=tmax_row,
-                            ray_tile=ray_tile, subtiles=SUBTILES,
-                            ids_mode=mode)
-        if nearest:
-            t2, s2 = out2[0], out2[1]
-            better = t2 < t_g
-            if n_attrs:
-                a_g = jnp.where(better, out2[2], a_g)
-            s_g = jnp.where(better, s2, s_g)
-            t_g = jnp.minimum(t_g, t2)
-        else:
-            t_g = jnp.minimum(t_g, out2[0])
-            s_g = s_g | out2[1]
-    return t_g, s_g, a_g
-
-
-def _walk_groups(accel, rp, eps, interpret, variant, nearest, t_max,
-                 n_attrs, tmax_row=None, attr_kind="shade",
-                 early_exit=None, shared_origin=None, ray_tile=RAY_TILE,
-                 lane_cull=False, wq=False):
-    """Phase 1-3 over the cluster set, split into VMEM-sized groups when
-    the scene's kernel blocks exceed the resident budget (the >VMEM path:
-    each group is one ordinary resident-block walk; per-ray results merge
-    by elementwise nearest — rays are independent, so grouping is exact).
-    tmax_row: optional [1, rp] per-ray t_max (occlusion queries only).
-    Returns (t [1, rp], slot [1, rp] global packed ids, attrs | None) for
-    nearest queries; (t, occ, None) for occlusion queries."""
-    cs = accel.cluster_size
-    c_total = accel.num_clusters
-    if wq and variant in ("pmt", "mt") and accel.pmt_blocks is not None:
-        if _WQ_IMPL == "dma":
-            if cs % 128 == 0:
-                # DMA-prefetch walk: blocks stream from HBM, so there is
-                # NO residency requirement at any scene size. Requires
-                # the block minor dim (cluster size) lane-aligned: Mosaic
-                # cannot memref_slice a partial 128-lane tile out of the
-                # HBM table (cs=128 ties cs=64 on the dynamic GI walk
-                # anyway — exp/NOTES_r5_wq.md). Other sizes fall through
-                # to the dynamic kernels unchanged.
-                return _walk_dma(accel, rp, eps, interpret, variant,
-                                 nearest, t_max, n_attrs,
-                                 tmax_row=tmax_row, attr_kind=attr_kind,
-                                 shared_origin=shared_origin,
-                                 ray_tile=ray_tile, early_exit=early_exit)
-            # dma selected but unavailable -> the DYNAMIC path, not the
-            # grid experiment (which is slower than dynamic).
-        elif c_total <= _vmem_group_clusters(accel, "pmt", n_attrs,
-                                             attr_kind):
-            # Grid-impl work queue (the measurement variant): requires a
-            # VMEM-sized block table for the overflow residual's resident
-            # launch; bigger scenes fall through.
-            return _walk_wq(accel, rp, eps, interpret, variant, nearest,
-                            t_max, n_attrs, tmax_row=tmax_row,
-                            attr_kind=attr_kind,
-                            shared_origin=shared_origin,
-                            ray_tile=ray_tile)
-    if shared_origin is not None and variant == "pmt":
-        # All rays leave one point: fold the origin into the block
-        # scalars (cheap XLA elementwise) and run the o-free intersector.
-        variant = "pmto"
-    gsz = _vmem_group_clusters(
-        accel, "pmt" if variant == "pmto" else variant, n_attrs, attr_kind)
-    all_blocks = {"woop": accel.woop_blocks,
-                  "pmt": accel.pmt_blocks,
-                  "pmto": accel.pmt_blocks,
-                  "pmtt": accel.pmt_t_blocks}.get(variant, accel.tri_blocks)
-    if all_blocks is None:
-        raise ValueError(
-            f"variant {variant!r} blocks were not built for this accel "
-            "(build_cluster_accel(..., variants=...))")
-    if variant == "pmto":
-        all_blocks = _fold_origin(all_blocks, shared_origin)
-    all_attrs = _attr_table(accel, variant, attr_kind)
-    t_cap = t_max if (nearest and t_max != float("inf")) else None
-    if STREAM_GROUPS and c_total > gsz:
-        return _walk_groups_streamed(
-            accel, rp, eps, interpret, variant, nearest, t_max, n_attrs,
-            tmax_row, all_blocks, all_attrs, gsz, t_cap, early_exit,
-            ray_tile=ray_tile)
-    best = None
-    for lo in range(0, c_total, gsz):
-        hi = min(lo + gsz, c_total)
-        # Batched front-to-back early exit pays once visit lists get long:
-        # by default when a group's cluster count makes silhouette
-        # near-miss walks long (finely tessellated scenes); for small
-        # scenes the per-batch scalar check costs more than the 1-2 visits
-        # it could skip. Callers who KNOW their batch walks long lists on
-        # a small scene (hemispherically divergent GI bounces visit
-        # 350-640 of ~790 teapot clusters) override with early_exit=True.
-        # Occlusion and per-ray-tmax queries never exit early (no
-        # front-to-back ordering contract).
-        early = (nearest and tmax_row is None
-                 and ((hi - lo) > _EARLY_EXIT_MIN_CLUSTERS
-                      if early_exit is None else bool(early_exit)))
-        flat = _flat_acc_auto(cs, n_attrs)
-        refine = lane_cull and _LANE_CULL_MODE == "refine"
-        lc = (lane_cull and not refine and flat
-              and (hi - lo) <= _LANE_CULL_MAX_C)
-        ids, tnear, cnt = _tile_visit_lists_soa(
-            rp, accel.cluster_min[lo:hi], accel.cluster_max[lo:hi],
-            ray_tile, interpret=interpret, t_cap=t_cap)
-        if refine:
-            ids, tnear, cnt = _per_ray_refine(
-                rp, ids, tnear, cnt, accel.cluster_min[lo:hi],
-                accel.cluster_max[lo:hi], ray_tile, hi - lo)
-        # Wide lists (large scenes) would force chunked prefetch-mode
-        # launches; stream the lists per grid step instead (one launch).
-        mode = IDS_MODE
-        if mode == "prefetch":
-            eb = 8 if early else 4
-            max_t = max(SUBTILES, _SMEM_IDS_BUDGET_BYTES
-                        // (eb * ids.shape[1]) // SUBTILES * SUBTILES)
-            if ids.shape[0] > max_t:
-                mode = "smem"
-        kern = functools.partial(
-            _walk_kernel, cluster_size=cs, eps=eps, variant=variant,
-            nearest=nearest, t_max=t_max, n_attrs=n_attrs,
-            unroll=VISIT_UNROLL, per_ray_tmax=tmax_row is not None,
-            ray_tile=ray_tile, ids_mode=mode, early_exit=early,
-            ee_batch=_ee_batch_for(cs),
-            flat_acc=flat, lane_cull=lc,
-        )
-        blocks = (all_blocks[lo:hi],)
-        if n_attrs:
-            blocks = blocks + (all_attrs[lo:hi],)
-        bbox = (jnp.stack([jnp.min(accel.cluster_min[lo:hi], axis=0),
-                           jnp.max(accel.cluster_max[lo:hi], axis=0)])
-                if early else None)
-        # [6, C] rows (min xyz | max xyz): SMEM pads the MINOR dim to
-        # 128, so the bounds must ride transposed (a [C, 6] table pads
-        # 6 -> 128 = 21x its logical size and blows the SMEM budget).
-        lcb = (jnp.concatenate([accel.cluster_min[lo:hi],
-                                accel.cluster_max[lo:hi]], axis=1).T
-               if lc else None)
-        if lc and _LANE_CULL_FORCE_SKIP:
-            lcb = jnp.concatenate(
-                [jnp.full((3, hi - lo), 3e38, jnp.float32),
-                 jnp.full((3, hi - lo), -3e38, jnp.float32)])
-        out = _launch_walk(kern, cnt, ids, rp, blocks, interpret,
-                           n_attrs=n_attrs, tmax_row=tmax_row,
-                           ray_tile=ray_tile, subtiles=SUBTILES,
-                           ids_mode=mode,
-                           tnear=tnear if early else None, bbox=bbox,
-                           lane_bounds=lcb)
-        if nearest:
-            t_g, s_g = out[0], out[1] + lo * cs
-            a_g = out[2] if n_attrs else None
-        else:
-            t_g, s_g, a_g = out[0], out[1], None
-        if best is None:
-            best = (t_g, s_g, a_g)
-        elif nearest:
-            better = t_g < best[0]
-            best = (
-                jnp.minimum(best[0], t_g),
-                jnp.where(better, s_g, best[1]),
-                jnp.where(better, a_g, best[2]) if n_attrs else None,
-            )
-        else:
-            best = (jnp.minimum(best[0], t_g), best[1] | s_g, None)
-    return best
-
-
-def _walk_groups_streamed(accel, rp, eps, interpret, variant, nearest,
-                          t_max, n_attrs, tmax_row, all_blocks, all_attrs,
-                          gsz, t_cap, early_exit, ray_tile=RAY_TILE):
-    """>VMEM walk via `_gstream_kernel`: one launch, cluster groups
-    streamed along the inner grid axis (Pallas double-buffers the sliced
-    block table), accumulators carried in VMEM scratch. Phase 1 runs per
-    group over a shared extents pass; the last group is padded with
-    inverted boxes (never flagged) and zero blocks (never accepted)."""
-    cs = accel.cluster_size
-    c_total = accel.num_clusters
-    # Halve the resident budget: the pipeline keeps TWO group slices live.
-    gsz = max(256, gsz // 2)
-    ng = -(-c_total // gsz)
-    pad_c = ng * gsz - c_total
-    big = jnp.float32(3e38)
-    cmin, cmax = accel.cluster_min, accel.cluster_max
-    if pad_c:
-        cmin = jnp.concatenate([cmin, jnp.full((pad_c, 3), big)], axis=0)
-        cmax = jnp.concatenate([cmax, jnp.full((pad_c, 3), -big)], axis=0)
-    lo_e, hi_e = _tile_extents_pallas(rp, ray_tile, interpret)
-    o_lo, o_hi = lo_e[:, 0:3], hi_e[:, 0:3]
-    d_lo, d_hi = lo_e[:, 4:7], hi_e[:, 4:7]
-    tile_alive = hi_e[:, 7] > 0.0
-    early = (nearest and tmax_row is None
-             and (gsz > _EARLY_EXIT_MIN_CLUSTERS
-                  if early_exit is None else bool(early_exit)))
-    ids_g, tnear_g, cnt_g = [], [], []
-    for g in range(ng):
-        ids, tnear, cnt = _visit_lists_from_extents(
-            o_lo, o_hi, d_lo, d_hi, cmin[g * gsz:(g + 1) * gsz],
-            cmax[g * gsz:(g + 1) * gsz], t_cap=t_cap)
-        cnt = jnp.where(tile_alive, cnt, 0)
-        ids_g.append(ids)
-        tnear_g.append(tnear)
-        cnt_g.append(cnt)
-    ids = jnp.stack(ids_g)      # [G, nt, W]
-    tnear = jnp.stack(tnear_g)
-    cnt = jnp.stack(cnt_g)      # [G, nt]
-    blocks = (jnp.concatenate(
-        [all_blocks,
-         jnp.zeros((pad_c,) + all_blocks.shape[1:], all_blocks.dtype)],
-        axis=0) if pad_c else all_blocks,)
-    if n_attrs:
-        blocks = blocks + (jnp.concatenate(
-            [all_attrs,
-             jnp.zeros((pad_c,) + all_attrs.shape[1:], all_attrs.dtype)],
-            axis=0) if pad_c else all_attrs,)
-    kern = functools.partial(
-        _gstream_kernel, cluster_size=cs, group_size=gsz, eps=eps,
-        variant=variant, nearest=nearest, t_max=t_max, n_attrs=n_attrs,
-        per_ray_tmax=tmax_row is not None, ray_tile=ray_tile,
-        early_exit=early,
-        ee_batch=_ee_batch_for(cs),
-    )
-    bbox_g = None
-    if early:
-        bbox_g = jnp.stack(
-            [jnp.min(cmin.reshape(ng, gsz, 3), axis=1),
-             jnp.max(cmax.reshape(ng, gsz, 3), axis=1)], axis=1)  # [G,2,3]
-    out = _launch_gstream(kern, cnt, ids, rp, blocks, interpret,
-                          n_attrs=n_attrs, tmax_row=tmax_row,
-                          ray_tile=ray_tile, subtiles=SUBTILES,
-                          tnear=tnear if early else None,
-                          nearest=nearest, cluster_size=cs, bbox=bbox_g)
-    if nearest:
-        return out[0], out[1], out[2] if n_attrs else None
-    return out[0], out[1], None
-
-
-# ---------------------------------------------------------------------------
-# Rest-set merge (dense XLA pass over the small rest triangles)
-# ---------------------------------------------------------------------------
-
-
-def _rest_soa(accel):
-    rb = accel.rest_blocks
-    return TriangleSoA(v0=rb[:, 0:3], e1=rb[:, 3:6], e2=rb[:, 6:9])
-
-
-def _rest_t_rows(o, d, rb, eps, t_limit=None):
-    """Möller–Trumbore of the whole ray pack against the rest set in the
-    walk kernel's TRANSPOSED layout: o/d are tuples of [1, N] rows, rb
-    [Rr, 9] (v0|e1|e2 rows) puts the Rr triangles on SUBLANES, rays on
-    LANES — every intermediate is a dense [Rr, N] outer broadcast. The
-    former [N, Rr] formulation padded the Rr lane axis to 128 in every
-    materialized intermediate: the 2-triangle ground plane measured
-    1.24 ms at 2.56 M rays — more than the entire cluster walk
-    (exp/r3_split2.py, v5e). Math and acceptance mirror
-    ops.intersect.moller_trumbore exactly (same safe-det division, same
-    strict comparisons). Returns t [Rr, N], +inf on miss."""
-    ox, oy, oz = o
-    dx, dy, dz = d
-
-    def col(k):
-        return rb[:, k:k + 1]  # [Rr, 1]
-
-    v0x, v0y, v0z = col(0), col(1), col(2)
-    e1x, e1y, e1z = col(3), col(4), col(5)
-    e2x, e2y, e2z = col(6), col(7), col(8)
-    px = dy * e2z - dz * e2y
-    py = dz * e2x - dx * e2z
-    pz = dx * e2y - dy * e2x
-    det = e1x * px + e1y * py + e1z * pz
-    inv = 1.0 / jnp.where(jnp.abs(det) >= eps, det, 1.0)
-    sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
-    u = (sx * px + sy * py + sz * pz) * inv
-    qx = sy * e1z - sz * e1y
-    qy = sz * e1x - sx * e1z
-    qz = sx * e1y - sy * e1x
-    v = (dx * qx + dy * qy + dz * qz) * inv
-    t = (e2x * qx + e2y * qy + e2z * qz) * inv
-    valid = (
-        (jnp.abs(det) >= eps)
-        & (u >= 0.0)
-        & (v >= 0.0)
-        & (u + v <= 1.0)
-        & (t > eps)
-    )
-    if t_limit is not None:
-        valid = valid & (t < t_limit)
-    return jnp.where(valid, t, INF)
-
-
-def _merge_rest_nearest(accel, rays8, t, slot, attrs, eps, n_attrs,
-                        attr_kind="shade"):
-    """Fold the rest set (ClusterAccel.rest_blocks — small objects handled
-    densely, the reference's rest_tri tail loop, opt.rs:69-72) into the
-    kernel's per-ray nearest results. t/slot/attrs are [1|A, N] rows; the
-    winning rest triangle's attr row is reconstructed by a masked sum over
-    the (static, small) Rr — cost scales with Rr, which the build caps."""
-    if accel.rest_blocks is None:
-        return t, slot, attrs
-    o_rows = tuple(rays8[k:k + 1, :] for k in (0, 1, 2))
-    d_rows = tuple(rays8[k:k + 1, :] for k in (4, 5, 6))
-    return _merge_rest_nearest_rows(accel, o_rows, d_rows, t, slot, attrs,
-                                    eps, n_attrs, attr_kind)
-
-
-def _merge_rest_nearest_rows(accel, o_rows, d_rows, t, slot, attrs, eps,
-                             n_attrs, attr_kind="shade"):
-    """Row-tuple core of `_merge_rest_nearest` — also used by camera mode,
-    whose direction rows are derived lazily (never materialized as a
-    pack)."""
-    rb = accel.rest_blocks  # [Rr, 9]
-    rr = rb.shape[0]
-    t_r = _rest_t_rows(o_rows, d_rows, rb, eps)  # [Rr, N]
-    tmin = jnp.min(t_r, axis=0, keepdims=True)  # [1, N]
-    # Tie rule: lowest rest index wins — identical to the old argmin.
-    iota = jax.lax.broadcasted_iota(jnp.int32, (rr, 1), 0)
-    jarg = jnp.min(jnp.where(t_r == tmin, iota, rr), axis=0,
-                   keepdims=True)  # [1, N]
-    better = tmin < t                    # [1, N]
-    s_total = accel.order.shape[0]
-    t = jnp.minimum(t, tmin)
-    slot = jnp.where(better, s_total + jarg, slot)
-    if n_attrs:
-        if attr_kind == "grad":
-            tbl = accel.rest_grad
-        elif attr_kind == "both":
-            tbl = jnp.concatenate([accel.rest_attrs, accel.rest_grad],
-                                  axis=1)
-        else:
-            tbl = accel.rest_attrs
-        row = jnp.zeros((n_attrs, t.shape[1]), dtype=t.dtype)
-        for j in range(rr):
-            row = jnp.where(jarg == j, tbl[j][:, None], row)
-        attrs = jnp.where(better, row, attrs)
-    return t, slot, attrs
-
-
-def _merge_rest_occlusion(accel, rays8, occ, eps, t_max, tmax_arr=None):
-    if accel.rest_blocks is None:
-        return occ
-    if tmax_arr is not None:
-        t_lim = tmax_arr[None, :]  # [1, N] per-ray bound
-    elif t_max != float("inf"):
-        t_lim = t_max
-    else:
-        t_lim = None
-    o_rows = tuple(rays8[k:k + 1, :] for k in (0, 1, 2))
-    d_rows = tuple(rays8[k:k + 1, :] for k in (4, 5, 6))
-    t_r = _rest_t_rows(o_rows, d_rows, accel.rest_blocks, eps,
-                       t_limit=t_lim)
-    return occ | jnp.any(jnp.isfinite(t_r), axis=0)
-
-
 # ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
-
-
-def nearest_hit_soa(
-    accel: ClusterAccel,
-    rays8: jnp.ndarray,
-    eps: float = 1e-8,
-    interpret: bool | None = None,
-    variant: str = DEFAULT_VARIANT,
-    shared_origin: jnp.ndarray | None = None,
-    ray_tile: int = RAY_TILE,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Raw kernel nearest-hit over the SoA ray pack [8, N] (see
-    `rays_to_soa`). Returns (t [N] detached, tri_id [N] original ids).
-    This is the zero-copy fast path the bench and renderer hot loops use;
-    `nearest_hit_pallas` wraps it with the [N,3] API + differentiable t.
-
-    shared_origin: optional [3] origin shared by EVERY ray in the pack
-    (the pinhole-camera primary case). Switches the "pmt" variant to the
-    origin-folded "pmto" intersector — ~25% fewer VPU ops per test.
-    Caller asserts the sharing; results can differ from the default path
-    only on acceptance boundaries within one f32 rounding."""
-    if interpret is None:
-        interpret = not _on_tpu()
-    rays8 = jax.lax.stop_gradient(rays8)
-    rp, r = _pad_rays_soa(rays8, ray_tile)
-    t_k, slot, _ = _walk_groups(accel, rp, eps, interpret, variant,
-                                nearest=True, t_max=float("inf"), n_attrs=0,
-                                shared_origin=shared_origin,
-                                ray_tile=ray_tile)
-    t_k, slot, _ = _merge_rest_nearest(accel, rp, t_k, slot, None, eps, 0)
-    t_k = t_k[0, :r]
-    slot = slot[0, :r]
-    # The kernel emits packed slot ids (cluster * CS + sublane, rest slots
-    # beyond); resolve to original triangle ids with one gather, 0 on miss
-    # (Hit contract).
-    # NOTE this gather is EXPENSIVE on TPU (~19.5 ms at 2.56 M rays); hot
-    # paths that only need shading data should use nearest_hit_attrs_soa,
-    # which never leaves packed-slot space.
-    hit = jnp.isfinite(t_k)
-    tri_id = jnp.where(hit, accel.order_ext[jnp.where(hit, slot, 0)], 0)
-    return t_k, tri_id
-
-
-def nearest_hit_attrs_soa(
-    accel: ClusterAccel,
-    rays8: jnp.ndarray,
-    eps: float = 1e-8,
-    interpret: bool | None = None,
-    variant: str = DEFAULT_VARIANT,
-    t_cap: float | None = None,
-    early_exit: bool | None = None,
-    shared_origin: jnp.ndarray | None = None,
-    attr_kind: str = "shade",
-    ray_tile: int = RAY_TILE,
-    lane_cull: bool = False,
-    wq: bool = False,
-) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Nearest hit over the SoA ray pack, with the winning triangle's
-    shading attributes accumulated IN the kernel (see _walk_kernel). Returns
-    (t [N], slot [N] packed slot ids, attrs [A, N]) — attrs rows are
-    normal(3) | color(3) | albedo/pi, reflectivity, roughness, all 0 on
-    miss lanes. No per-ray gather anywhere on this path.
-
-    t_cap: optional distance for the TWO-PHASE incoherent query. Phase 1
-    walks with every tile frustum truncated at t_cap — a hemispherically
-    divergent (GI) tile's frustum collapses from most of the scene to a
-    cap-sized neighborhood, so visit lists shrink to primary-ray sizes.
-    Rays whose nearest hit (including the always-full-range rest set)
-    lands under the cap are DONE — any other candidate would be farther.
-    Only the survivors (escaped/far rays, whose frustums contain little
-    geometry) pay an uncapped phase 2; dead-lane culling makes their
-    all-done tiles free. Result is EXACTLY the uncapped nearest hit."""
-    if interpret is None:
-        interpret = not _on_tpu()
-    rays8 = jax.lax.stop_gradient(rays8)
-    rp, r = _pad_rays_soa(rays8, ray_tile)
-    n_attrs = accel.attr_blocks.shape[1]
-    if attr_kind == "both":
-        n_attrs += accel.grad_blocks.shape[1]
-    if t_cap is None:
-        t_k, slot, attrs = _walk_groups(accel, rp, eps, interpret, variant,
-                                        nearest=True, t_max=float("inf"),
-                                        n_attrs=n_attrs,
-                                        attr_kind=attr_kind,
-                                        early_exit=early_exit,
-                                        shared_origin=shared_origin,
-                                        ray_tile=ray_tile,
-                                        lane_cull=lane_cull, wq=wq)
-        t_k, slot, attrs = _merge_rest_nearest(accel, rp, t_k, slot, attrs,
-                                               eps, n_attrs,
-                                               attr_kind=attr_kind)
-        return t_k[0, :r], slot[0, :r], attrs[:, :r]
-    t1, s1, a1 = _walk_groups(accel, rp, eps, interpret, variant,
-                              nearest=True, t_max=float(t_cap),
-                              n_attrs=n_attrs, attr_kind=attr_kind,
-                              early_exit=early_exit,
-                              shared_origin=shared_origin,
-                              ray_tile=ray_tile, lane_cull=lane_cull,
-                              wq=wq)
-    t1, s1, a1 = _merge_rest_nearest(accel, rp, t1, s1, a1, eps, n_attrs,
-                                     attr_kind=attr_kind)
-    done = t1 < t_cap  # [1, rp]; rest hits beyond cap do NOT settle a ray
-    alive2 = (rp[7:8, :] != 0.0) & ~done
-    rp2 = jnp.concatenate([rp[:7], alive2.astype(rp.dtype)], axis=0)
-    t2, s2, a2 = _walk_groups(accel, rp2, eps, interpret, variant,
-                              nearest=True, t_max=float("inf"),
-                              n_attrs=n_attrs, attr_kind=attr_kind,
-                              early_exit=early_exit,
-                              shared_origin=shared_origin,
-                              ray_tile=ray_tile, lane_cull=lane_cull,
-                              wq=wq)
-    # Survivors may still be beaten by their (full-range) rest candidate
-    # already merged into pass 1: keep the elementwise nearest of both.
-    better2 = t2 < t1
-    t_m = jnp.where(done, t1, jnp.minimum(t1, t2))
-    s_m = jnp.where(done | ~better2, s1, s2)
-    a_m = jnp.where(done | ~better2, a1, a2)
-    return t_m[0, :r], s_m[0, :r], a_m[:, :r]
-
-
-def any_hit_soa(
-    accel: ClusterAccel,
-    rays8: jnp.ndarray,
-    eps: float = 1e-8,
-    t_max=float("inf"),
-    interpret: bool | None = None,
-    variant: str = DEFAULT_VARIANT,
-    ray_tile: int = RAY_TILE,
-    lane_cull: bool = False,
-    wq: bool = False,
-) -> jnp.ndarray:
-    """Raw kernel occlusion query over the SoA ray pack [8, N]. t_max may
-    be a python float (uniform bound) or a [N] array (per-ray bound — the
-    area-light visibility case: each shadow sample stops at its own light-
-    surface distance, main.rs:176-241's `length` analog)."""
-    if interpret is None:
-        interpret = not _on_tpu()
-    rays8 = jax.lax.stop_gradient(rays8)
-    tmax_row = None
-    if not isinstance(t_max, (int, float)):
-        t_max = jax.lax.stop_gradient(jnp.asarray(t_max))
-        if t_max.ndim:
-            # Sanitize: +inf entries become a huge finite bound so kernel
-            # arithmetic (0 * inf in the Woop matmul path) can't NaN.
-            row = jnp.where(jnp.isfinite(t_max), t_max, 3e38)
-            tmax_row = row.astype(rays8.dtype)[None, :]
-            pad = (-rays8.shape[1]) % (ray_tile * SUBTILES)
-            if pad:
-                tmax_row = jnp.concatenate(
-                    [tmax_row, jnp.zeros((1, pad), tmax_row.dtype)], axis=1)
-            t_max = float("inf")
-        else:
-            t_max = float(t_max)
-    rp, r = _pad_rays_soa(rays8, ray_tile)
-    _, occ, _ = _walk_groups(accel, rp, eps, interpret, variant,
-                             nearest=False, t_max=t_max, n_attrs=0,
-                             tmax_row=tmax_row, ray_tile=ray_tile,
-                             lane_cull=lane_cull, wq=wq)
-    occ_b = occ[0] != 0
-    occ_b = _merge_rest_occlusion(
-        accel, rp, occ_b, eps, t_max,
-        tmax_arr=tmax_row[0] if tmax_row is not None else None)
-    return occ_b[:r]
-
-
-# ---------------------------------------------------------------------------
-# Camera mode: primary nearest-hit with IN-KERNEL ray derivation
-# ---------------------------------------------------------------------------
-
-
-def _camera_tile_extents(n_tiles, offs, w, h, spp, scale, aspect, bh, bw,
-                         tile0=0):
-    """Analytic per-tile frustum extents for camera mode — no ray pack is
-    read. A tile is one bh x bw pixel block x spp samples; the direction
-    formula is monotone in (pixel + offset) per axis and every f32 op in
-    the chain is monotone under rounding, so evaluating it at the extreme
-    (pixel + offset) yields exactly the min/max the masked reduction over
-    a materialized pack would produce. Returns (o_lo, o_hi, d_lo, d_hi)
-    [nt, 3] — origins are the pinhole at 0."""
-    nbx = w // bw
-    tt = jnp.minimum(tile0 + jnp.arange(n_tiles, dtype=jnp.int32),
-                     nbx * (h // bh) - 1)  # chunk overrun clamps (see
-    # _camera_dirs) so padding tiles repeat the last block's frustum
-    br = tt // nbx
-    bc = tt % nbx
-    ox_min, ox_max = jnp.min(offs[:, 0]), jnp.max(offs[:, 0])
-    oy_min, oy_max = jnp.min(offs[:, 1]), jnp.max(offs[:, 1])
-    x_lo = (bc * bw).astype(jnp.float32) + ox_min
-    x_hi = (bc * bw + (bw - 1)).astype(jnp.float32) + ox_max
-    y_lo = (br * bh).astype(jnp.float32) + oy_min
-    y_hi = (br * bh + (bh - 1)).astype(jnp.float32) + oy_max
-    xx_lo = (2.0 * x_lo / w - 1.0) * aspect * scale
-    xx_hi = (2.0 * x_hi / w - 1.0) * aspect * scale
-    yy_lo = (1.0 - 2.0 * y_hi / h) * scale  # yy decreases in y
-    yy_hi = (1.0 - 2.0 * y_lo / h) * scale
-    one = jnp.ones_like(xx_lo)
-    d_lo = jnp.stack([xx_lo, yy_lo, one], axis=1)
-    d_hi = jnp.stack([xx_hi, yy_hi, one], axis=1)
-    z = jnp.zeros((n_tiles, 3), jnp.float32)
-    return z, z, d_lo, d_hi
-
-
-def _camera_dir_rows_xla(n, offs, w, h, spp, scale, aspect, bh, bw,
-                         ray_base=0):
-    """XLA twin of `_camera_dirs` over flat block-order ray ids — the
-    producer is pure iota math, so XLA fuses it into its consumer (the
-    rest-set pass) without materializing a pack. Returns (dx, dy, dz)
-    [1, n] rows, bitwise equal to the block-permuted camera_rays pack.
-    ray_base (traced ok): first block-order ray id of a chunked launch;
-    BLOCK indices past the frame's grid clamp to the last block with the
-    in-block lane preserved — the same clamp `_camera_dirs` applies in
-    the kernel, so a chunk's overrun rows repeat the last block's walk
-    exactly. (Production drops rows past the frame either way.)"""
-    l = ray_base + jnp.arange(n, dtype=jnp.int32)[None, :]
-    p2 = bh * bw
-    run = spp * p2
-    b = jnp.minimum(l // run, (w // bw) * (h // bh) - 1)
-    r = l % run
-    s_idx = r // p2
-    p = r % p2
-    by = p // bw
-    bx = p % bw
-    nbx = w // bw
-    br = b // nbx
-    bc = b % nbx
-    xi = (bc * bw + bx).astype(jnp.float32)
-    yi = (br * bh + by).astype(jnp.float32)
-    ox = jnp.zeros((1, n), jnp.float32)
-    oy = jnp.zeros((1, n), jnp.float32)
-    for k in range(spp):
-        ox = jnp.where(s_idx == k, offs[k, 0], ox)
-        oy = jnp.where(s_idx == k, offs[k, 1], oy)
-    xx = (2.0 * (xi + ox) / w - 1.0) * aspect * scale
-    yy = (1.0 - 2.0 * (yi + oy) / h) * scale
-    return xx, yy, jnp.ones((1, n), jnp.float32)
-
-
-def _launch_camera(kern, cnt, ids, offs, blocks, interpret, n_attrs=0,
-                   subtiles=SUBTILES, tnear=None, n_tiles=None,
-                   ray_tile=RAY_TILE, tile_base=None, bbox=None,
-                   lane_bounds=None, block_space=None, scratch_shapes=None):
-    """One-launch camera-mode walk: visit lists stream per grid step as
-    SMEM slices (the "smem" ids mode — no whole-array SMEM residency, so
-    no chunked launches at any tile count); the only tensor operands are
-    the [spp, 2] offset table and the kernel block tables."""
-    rp = n_tiles * ray_tile
-    step = ray_tile * subtiles
-    n_steps = n_tiles // subtiles
-    out_rows = [1, 1] + ([n_attrs] if n_attrs else [])
-    out_dtypes = [jnp.float32, jnp.int32] + ([jnp.float32] if n_attrs else [])
-    w = ids.shape[1]
-    smem = functools.partial(pl.BlockSpec, memory_space=pltpu.SMEM)
-    in_specs = [smem((subtiles, 1), lambda i, *_: (i, 0)),
-                smem((subtiles, w), lambda i, *_: (i, 0))]
-    operands = [cnt[:, None], ids]
-    if tnear is not None:
-        in_specs.append(smem((subtiles, w), lambda i, *_: (i, 0)))
-        operands.append(tnear)
-        in_specs.append(smem((2, 3), lambda i, *_: (0, 0)))
-        operands.append(bbox)
-    in_specs.append(smem(offs.shape, lambda i, *_: (0, 0)))
-    operands.append(offs)
-    if tile_base is not None:
-        in_specs.append(smem((1, 1), lambda i, *_: (0, 0)))
-        operands.append(
-            jnp.reshape(jnp.asarray(tile_base, jnp.int32), (1, 1)))
-    if lane_bounds is not None:
-        in_specs.append(smem(lane_bounds.shape, lambda i, *_: (0, 0)))
-        operands.append(lane_bounds)
-    for b in blocks:
-        in_specs.append(
-            pl.BlockSpec(memory_space=block_space)
-            if block_space is not None else
-            pl.BlockSpec(b.shape, lambda i, *_, nd=b.ndim: (0,) * nd))
-        operands.append(b)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=0,
-        grid=(n_steps,),
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((rows, step), lambda i, *_: (0, i))
-            for rows in out_rows
-        ],
-        scratch_shapes=scratch_shapes or [],
-    )
-    out_shape = [
-        jax.ShapeDtypeStruct((rows, rp), dt)
-        for rows, dt in zip(out_rows, out_dtypes)
-    ]
-    return pl.pallas_call(
-        kern,
-        grid_spec=grid_spec,
-        out_shape=out_shape,
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=120 * 1024 * 1024),
-    )(*operands)
-
-
-def nearest_hit_camera_soa(
-    accel: ClusterAccel,
-    offs: jnp.ndarray,
-    *,
-    width: int,
-    height: int,
-    spp: int,
-    scale: float = 1.0,
-    eps: float = 1e-8,
-    interpret: bool | None = None,
-    bh: int = 16,
-    bw: int = 16,
-    with_attrs: bool = False,
-    early_exit: bool | None = None,
-    tile_base=None,
-    tiles: int | None = None,
-    lane_cull: bool = False,
-):
-    """Primary nearest hit with rays derived IN KERNEL from the pinhole
-    camera formula (camera mode) — the TPU-native sibling of the
-    reference's per-pixel ray computation (main.rs:321-365). No ray pack
-    exists anywhere: tile frustums come from closed-form extents, the
-    walk derives each [1, RT] direction row from its tile index, and the
-    rest-set pass consumes lazily-derived rows fused by XLA. Removes
-    ~3 x 82 MB of per-frame HBM traffic at the reference workload.
-
-    offs: [spp, 2] stratified sub-pixel offsets (traced — perturbing them
-    varies every ray, which is how the benchmark's dependency chain rides
-    this path). Ray order is the bh x bw block permutation
-    (models/camera.block_ray_ids); derived directions are bitwise
-    identical to the block-permuted `camera_rays` pack.
-
-    Returns (t [N], slot [N]) — or (t, slot, attrs [A, N]) with
-    with_attrs — in block order. Requires bw | width, bh | height, and a
-    scene whose pmt blocks fit the resident-VMEM budget.
-
-    tile_base / tiles: CHUNKED launches — cover only frame blocks
-    [tile_base, tile_base + tiles) of the block grid (the production
-    render's per-chunk primary level, whitted.render). tile_base may be
-    TRACED (it rides to the kernel as one SMEM scalar, preserving the
-    scalars-only chunk-program argument pattern); tiles must be a static
-    int. Supertile pooling is skipped for chunked launches (a chunk's
-    block run wraps screen rows, where 2-D pooling needs the full
-    grid)."""
-    if interpret is None:
-        interpret = not _on_tpu()
-    if width % bw or height % bh:
-        raise ValueError("camera mode needs bw | width and bh | height")
-    if (tile_base is None) != (tiles is None):
-        raise ValueError("tile_base and tiles must be given together")
-    if accel.pmt_blocks is None:
-        raise ValueError("camera mode needs pmt blocks "
-                         "(build_cluster_accel(..., variants with 'pmt'))")
-    aspect = float(width) / float(height)
-    rt = spp * bh * bw
-    chunked = tile_base is not None
-    n_tiles = tiles if chunked else (width // bw) * (height // bh)
-    n = n_tiles * rt
-    n_attrs = accel.attr_blocks.shape[1] if with_attrs else 0
-    gsz = _vmem_group_clusters(accel, "pmt", n_attrs,
-                               budget=_CAMERA_BLOCK_BUDGET_BYTES)
-    c_total = accel.num_clusters
-    # DMA fetch (see _dma_walk_kernel): blocks stay in HBM, so VMEM
-    # residency stops being the scene-size ceiling. "auto" keeps the
-    # resident walk when the table fits (measured fastest at small
-    # cluster sizes, which DMA mode cannot serve anyway) and switches to
-    # DMA when it doesn't; requires a lane-aligned cluster size.
-    use_dma = (accel.cluster_size % 128 == 0
-               and (_CAMERA_FETCH == "dma"
-                    or (_CAMERA_FETCH == "auto" and c_total > gsz)))
-    if c_total > gsz and not use_dma:
-        raise ValueError("camera mode requires resident kernel blocks "
-                         f"(scene has {c_total} clusters > budget {gsz}) "
-                         "or a 128-multiple cluster size for DMA fetch")
-    offs = jax.lax.stop_gradient(jnp.asarray(offs, jnp.float32))
-    o_lo, o_hi, d_lo, d_hi = _camera_tile_extents(
-        n_tiles, offs, width, height, spp, scale, aspect, bh, bw,
-        tile0=tile_base if chunked else 0)
-    # Very large cluster sets (the DMA-fetch scales): skip supertile
-    # pooling — its ~2.3x list inflation makes pooled lists overflow,
-    # and ONE overflow tile's full scan costs C * ~2.6 us (9.8 s/frame
-    # observed at 6.4M tris) while the unpooled phase 2 measures ~6 ms
-    # total there — and widen the per-tile lists instead (camera lists
-    # ride per-step SMEM slices, so width is cheap; 6.4M max exact count
-    # measured 562 < 1024).
-    big_c = c_total > 16384
-    g = 1 if (chunked or big_c) else _supertile_group(c_total)
-    wf = min(c_total, 1024) if big_c else None
-    nby, nbx = height // bh, width // bw
-    # Pooling group: a supertile is a gy x gx BLOCK NEIGHBORHOOD covering
-    # a constant ~32x32-pixel footprint, so phase 1's pooled row count —
-    # and therefore its dense [nst, C] interval cost — is independent of
-    # the ray-tile size (smaller bh/bw tiles tighten the WALK's frustums
-    # without inflating the culling pass).
-    gy = max(1, 32 // bh)
-    gx = max(1, 32 // bw)
-    if g > 1 and gy * gx > 1:
-        # 2-D pooling: never a raster-order run — consecutive blocks wrap
-        # across screen rows, and one wrapping group's frustum spans the
-        # whole screen (measured: 4% of tiles overflowing to full-scene
-        # scans at 404k tris). Camera mode knows the block grid, so it
-        # pools spatially.
-        #
-        # PHASE ALIGNMENT: a pooled group whose direction interval spans
-        # 0 on an axis makes that slab axis unbounded (the interval test
-        # must admit t -> inf as d -> 0), so a group straddling the
-        # screen-center axis flags essentially the whole scene (measured
-        # ~3% of supertiles degenerating to full scans). The zero
-        # crossing sits at pixel W/2 (resp. H/2); phase-shift the group
-        # grid so it falls on a group boundary: with px pad blocks on the
-        # left, block b starts group (b + px) // gx, so the center block
-        # cb = W/2 // bw sits on a boundary iff px = (-cb) mod gx. (The
-        # former `cb % gx` only worked when gx | 2*cb — always at gx=2,
-        # not for gx=4 with an odd center block index.)
-        px = (-(width // 2 // bw)) % gx
-        py = (-(height // 2 // bh)) % gy
-        nby2 = (py + nby + gy - 1) // gy
-        nbx2 = (px + nbx + gx - 1) // gx
-        m = gy * gx
-        big = jnp.float32(3e38)
-
-        def pool2d(a, inverted):
-            fill = -big if inverted else big
-            a = a.reshape(nby, nbx, 3)
-            a = jnp.pad(a, ((py, gy * nby2 - nby - py),
-                            (px, gx * nbx2 - nbx - px), (0, 0)),
-                        constant_values=fill)
-            a = a.reshape(nby2, gy, nbx2, gx, 3)
-            return (a.max((1, 3)) if inverted else a.min((1, 3))
-                    ).reshape(nby2 * nbx2, 3)
-
-        po_lo, po_hi = pool2d(o_lo, False), pool2d(o_hi, True)
-        pd_lo, pd_hi = pool2d(d_lo, False), pool2d(d_hi, True)
-        ids_p, tnear_p, cnt_p = _visit_lists_from_extents(
-            po_lo, po_hi, pd_lo, pd_hi, accel.cluster_min,
-            accel.cluster_max)
-        # REFINE: the pooled (32x32-pixel) frustum lists average ~2.3x
-        # the exact per-tile length at 1.6M tris — walk inflation that
-        # costs more than the pooled top_k saves. One small gather of
-        # the CANDIDATE clusters' AABBs per supertile (shared by its m
-        # member tiles) + a per-tile interval re-test + a narrow top_k
-        # recovers EXACT per-tile lists, entry-t ordered by the tile's
-        # own frustum. Correctness: per-tile pass => pooled pass => in
-        # the candidate list (unless the pooled list overflowed, which
-        # falls back to the kernel's full scan via a forced huge cnt).
-        nst, wp = ids_p.shape
-        cm = jnp.take(accel.cluster_min, ids_p.reshape(-1),
-                      axis=0).reshape(nst, wp, 3)
-        cx = jnp.take(accel.cluster_max, ids_p.reshape(-1),
-                      axis=0).reshape(nst, wp, 3)
-
-        def grp(a):
-            # [nt, 3] tile rows -> [nst, m, 3] group-member layout.
-            # Pad value is irrelevant: padded member tiles are sliced
-            # away by ungrp before anything reads them.
-            a = a.reshape(nby, nbx, 3)
-            a = jnp.pad(a, ((py, gy * nby2 - nby - py),
-                            (px, gx * nbx2 - nbx - px), (0, 0)),
-                        constant_values=0.0)
-            a = a.reshape(nby2, gy, nbx2, gx, 3).transpose(0, 2, 1, 3, 4)
-            return a.reshape(nst, m, 3)
-
-        ol4, oh4 = grp(o_lo), grp(o_hi)
-        dl4, dh4 = grp(d_lo), grp(d_hi)
-        t_near_lb = None
-        t_far_ub = None
-        for k in range(3):
-            spans0 = (dl4[:, :, k] <= 0.0) & (dh4[:, :, k] >= 0.0)
-            dl_ = jnp.where(jnp.abs(dl4[:, :, k]) < _TINY, _TINY,
-                            dl4[:, :, k])
-            dh_ = jnp.where(jnp.abs(dh4[:, :, k]) < _TINY, _TINY,
-                            dh4[:, :, k])
-            i_lo = (1.0 / dh_)[:, :, None]          # [nst, 4, 1]
-            i_hi = (1.0 / dl_)[:, :, None]
-            e_lo = cm[:, None, :, k] - oh4[:, :, k:k + 1]  # [nst, 4, W]
-            e_hi = cx[:, None, :, k] - ol4[:, :, k:k + 1]
-            p1, p2 = e_lo * i_lo, e_lo * i_hi
-            p3, p4 = e_hi * i_lo, e_hi * i_hi
-            tmin_ax = jnp.minimum(jnp.minimum(p1, p2),
-                                  jnp.minimum(p3, p4))
-            tmax_ax = jnp.maximum(jnp.maximum(p1, p2),
-                                  jnp.maximum(p3, p4))
-            unb = spans0[:, :, None]
-            tmin_ax = jnp.where(unb, -INF, tmin_ax)
-            tmax_ax = jnp.where(unb, INF, tmax_ax)
-            t_near_lb = (tmin_ax if k == 0
-                         else jnp.maximum(t_near_lb, tmin_ax))
-            t_far_ub = (tmax_ax if k == 0
-                        else jnp.minimum(t_far_ub, tmax_ax))
-        # Padding candidates (rows beyond the pooled cnt) carry keys from
-        # clusters whose POOLED test failed; the tighter per-tile test
-        # fails them too, so no cnt mask is needed here.
-        flags2 = (t_near_lb <= t_far_ub) & (t_far_ub >= 0.0)
-        # PACKED selection — no gather: the sort key carries the
-        # quantized entry-t in its high bits and the GLOBAL cluster id
-        # in its low bits, so one top_k yields both, in front-to-back
-        # order. Quantization truncates the f32 pattern's low bits:
-        # monotone, and the decoded value can only be LOWER than the
-        # true entry-t — still a valid lower bound, so the kernel's
-        # early exit stays exact. Clamping to [0, 3e38] keeps flagged
-        # keys strictly below the +inf unflagged pattern (accepted t is
-        # always > eps > 0, so a 0-clamped bound remains valid).
-        idbits = max(1, (c_total - 1).bit_length())
-        mask_lo = (1 << idbits) - 1
-        keys_c = jnp.where(flags2, jnp.clip(t_near_lb, 0.0, 3e38), INF)
-        bits = jax.lax.bitcast_convert_type(keys_c, jnp.int32)
-        packed = (bits & ~mask_lo) | ids_p[:, None, :]
-        negp, _ = jax.lax.top_k(-packed, wp)        # [nst, 4, W]
-        packed_s = -negp
-        ids2 = packed_s & mask_lo
-        tnear2 = jax.lax.bitcast_convert_type(packed_s & ~mask_lo,
-                                              jnp.float32)
-        cnt2 = jnp.sum(flags2, axis=2, dtype=jnp.int32)
-        # Pooled overflow (candidates may be incomplete) -> full scan.
-        cnt2 = jnp.where((cnt_p > wp)[:, None], jnp.int32(_BIG_ID), cnt2)
-
-        def ungrp(a, w_):
-            # [nst, m, w] -> [nt, w] inverse of grp
-            a = a.reshape(nby2, nbx2, gy, gx, w_).transpose(0, 2, 1, 3, 4)
-            a = a.reshape(gy * nby2, gx * nbx2, w_)
-            return a[py:py + nby, px:px + nbx].reshape(n_tiles, w_)
-
-        ids = ungrp(ids2, wp)
-        tnear = ungrp(tnear2, wp)
-        cnt = ungrp(cnt2[:, :, None], 1)[:, 0]
-    else:
-        ids, tnear, cnt = _visit_lists_from_extents(
-            o_lo, o_hi, d_lo, d_hi, accel.cluster_min, accel.cluster_max,
-            width_floor=wf)
-    early = (c_total > _EARLY_EXIT_MIN_CLUSTERS if early_exit is None
-             else bool(early_exit))
-    folded = _fold_origin(accel.pmt_blocks, jnp.zeros(3, jnp.float32))
-    if use_dma:
-        # One combined (geometry | attr) table per visit DMA, row-padded
-        # to the sublane tile (see _pad_block_rows).
-        blocks = (_pad_block_rows(
-            jnp.concatenate([folded, accel.attr_blocks], axis=1)
-            if n_attrs else folded),)
-    else:
-        blocks = (folded,)
-        if n_attrs:
-            blocks = blocks + (accel.attr_blocks,)
-    subtiles = SUBTILES
-    pad_t = (-n_tiles) % subtiles
-    if pad_t:  # padding tiles carry cnt 0 and cost one empty subtile each
-        cnt = jnp.concatenate([cnt, jnp.zeros(pad_t, cnt.dtype)])
-        ids = jnp.concatenate(
-            [ids, jnp.zeros((pad_t, ids.shape[1]), ids.dtype)])
-        tnear = jnp.concatenate(
-            [tnear, jnp.full((pad_t, tnear.shape[1]), INF, tnear.dtype)])
-    camera = (width, height, spp, scale, aspect, bh, bw, subtiles, chunked)
-    # Camera mode's ids ride as small per-step SMEM slices, so the SMEM
-    # headroom for the lane-cull bounds table is ~2x the pack path's.
-    lc = (lane_cull and not use_dma and c_total <= 2 * _LANE_CULL_MAX_C
-          and _flat_acc_auto(accel.cluster_size, n_attrs))
-    if use_dma:
-        kern = functools.partial(
-            _dma_walk_kernel, cluster_size=accel.cluster_size, eps=eps,
-            variant="pmto", nearest=True, t_max=float("inf"),
-            n_attrs=n_attrs, per_ray_tmax=False, ray_tile=rt,
-            ids_mode="smem", early_exit=early, camera=camera,
-            ee_batch=_ee_batch_for(accel.cluster_size))
-        scratch = [
-            pltpu.VMEM((blocks[0].shape[1], accel.cluster_size),
-                       blocks[0].dtype),
-            pltpu.VMEM((blocks[0].shape[1], accel.cluster_size),
-                       blocks[0].dtype),
-            pltpu.SemaphoreType.DMA((2,)),
-        ]
-        bspace = pltpu.HBM
-    else:
-        kern = functools.partial(
-            _walk_kernel, cluster_size=accel.cluster_size, eps=eps,
-            variant="pmto", nearest=True, t_max=float("inf"),
-            n_attrs=n_attrs, unroll=1, per_ray_tmax=False, ray_tile=rt,
-            ids_mode="smem", early_exit=early, camera=camera,
-            ee_batch=_ee_batch_for(accel.cluster_size),
-            flat_acc=_flat_acc_auto(accel.cluster_size, n_attrs),
-            lane_cull=lc)
-        scratch = None
-        bspace = None
-    bbox_c = (jnp.stack([jnp.min(accel.cluster_min, axis=0),
-                         jnp.max(accel.cluster_max, axis=0)])
-              if early else None)
-    lcb = (jnp.concatenate([accel.cluster_min, accel.cluster_max],
-                           axis=1).T if lc else None)
-    out = _launch_camera(kern, cnt, ids, offs, blocks, interpret,
-                         n_attrs=n_attrs, subtiles=subtiles,
-                         tnear=tnear if early else None,
-                         n_tiles=n_tiles + pad_t, ray_tile=rt,
-                         tile_base=tile_base if chunked else None,
-                         bbox=bbox_c, lane_bounds=lcb,
-                         block_space=bspace, scratch_shapes=scratch)
-    t = out[0][:, :n]
-    slot = out[1][:, :n]
-    attrs = out[2][:, :n] if n_attrs else None
-    d_rows = _camera_dir_rows_xla(n, offs, width, height, spp, scale,
-                                  aspect, bh, bw,
-                                  ray_base=(tile_base * rt) if chunked
-                                  else 0)
-    o_rows = tuple(jnp.zeros((1, n), jnp.float32) for _ in range(3))
-    if accel.rest_blocks is not None:
-        t, slot, attrs = _merge_rest_nearest_rows(
-            accel, o_rows, d_rows, t, slot, attrs, eps, n_attrs)
-    if n_attrs:
-        return t[0], slot[0], attrs
-    return t[0], slot[0]
-
-
-def camera_mode_supported(accel: ClusterAccel,
-                          with_attrs: bool = True) -> bool:
-    """Whether `nearest_hit_camera_soa` can run for this accel: pmt blocks
-    built, and either resident within the camera-mode VMEM budget or
-    DMA-fetchable (lane-aligned cluster size — blocks then stay in HBM,
-    see _dma_walk_kernel)."""
-    if accel is None or accel.pmt_blocks is None:
-        return False
-    if accel.cluster_size % 128 == 0 and _CAMERA_FETCH in ("auto", "dma"):
-        return True
-    n_attrs = accel.attr_blocks.shape[1] if with_attrs else 0
-    gsz = _vmem_group_clusters(accel, "pmt", n_attrs,
-                               budget=_CAMERA_BLOCK_BUDGET_BYTES)
-    return accel.num_clusters <= gsz
-
-
-def nearest_hit_shaded_camera(
-    accel: ClusterAccel,
-    offs: jnp.ndarray,
-    *,
-    width: int,
-    height: int,
-    spp: int,
-    scale: float = 1.0,
-    eps: float = 1e-8,
-    interpret: bool | None = None,
-    tile_base=None,
-    tiles: int | None = None,
-    bh: int = 16,
-    bw: int = 16,
-    early_exit: bool | None = None,
-) -> Tuple[Hit, jnp.ndarray]:
-    """`nearest_hit_shaded`'s camera-mode sibling for the PRODUCTION
-    frame's primary level (whitted.render): rays derive in kernel from
-    the pinhole formula, so the level reads no [8, N] ray pack from HBM —
-    the path the headline benchmark measures, now the path the renderer
-    runs (the reference likewise derives each pixel's ray inline in its
-    loop, main.rs:321-365). Returns (Hit, attrs [N, 9]) with PACKED SLOT
-    ids, matching the nearest_hit_shaded contract, in block ray order.
-
-    Differentiability: every output is detached (kernel values; no
-    custom_vjp). render()'s frame path is never differentiated; the
-    optimization paths (inverse.fit via render_rays) use the pack path,
-    whose fused-walk VJP carries gradients."""
-    t, slot, attrs_k = nearest_hit_camera_soa(
-        accel, offs, width=width, height=height, spp=spp, scale=scale,
-        eps=eps, interpret=interpret, bh=bh, bw=bw, with_attrs=True,
-        early_exit=early_exit, tile_base=tile_base, tiles=tiles)
-    hit = jnp.isfinite(t)
-    attrs = _objid_expand(accel, attrs_k, hit).T
-    slot_safe = jnp.where(hit, slot, 0)
-    return Hit(t=t, tri=slot_safe, hit=hit), attrs
 
 
 def nearest_hit_pallas(
@@ -3786,66 +412,27 @@ def nearest_hit_pallas(
     o: jnp.ndarray,
     d: jnp.ndarray,
     eps: float = 1e-8,
-    interpret: bool | None = None,
-    variant: str = DEFAULT_VARIANT,
-    alive: jnp.ndarray | None = None,
+    alive: Optional[jnp.ndarray] = None,
+    interpret: bool = False,
 ) -> Hit:
-    """Nearest hit via the Pallas megakernel. Returns original triangle ids
-    and a t that is the kernel's value forward but differentiates through a
-    live-vertex re-derivation backward (see module docstring)."""
+    """Nearest hit through the walk kernel, with the rest set merged.
+    Returns original triangle ids; t is the kernel's value forward and
+    differentiates through `_lazy_t` backward."""
     sg = jax.lax.stop_gradient
-    rays8 = rays_to_soa(sg(o), sg(d), alive=alive)
-    t_k, tri_id = nearest_hit_soa(accel, rays8, eps, interpret, variant)
+    t_k, slot = _walk(accel, rays_to_soa(sg(o), sg(d), alive), eps,
+                      nearest=True, interpret=interpret)
     hit = jnp.isfinite(t_k)
-    tv_packed = sg(mesh.tri_v)
-    t = _lazy_t(mesh.verts, o, d, tv_packed, tri_id, hit, t_k)
+    tri_id = jnp.where(hit, accel.order[jnp.where(hit, slot, 0)], 0)
+    if accel.rest_ids is not None:
+        rt = rest_triangles(jax.tree_util.tree_map(sg, mesh), accel)
+        hb = nearest_hit_brute(rt, sg(o), sg(d), eps,
+                               block=max(8, accel.rest_ids.shape[0]))
+        better = hb.t < t_k
+        t_k = jnp.minimum(t_k, hb.t)
+        tri_id = jnp.where(better, accel.rest_ids[hb.tri], tri_id)
+        hit = jnp.isfinite(t_k)
+    t = _lazy_t(mesh.verts, o, d, sg(mesh.tri_v), tri_id, hit, t_k)
     return Hit(t=t, tri=tri_id, hit=hit)
-
-
-def nearest_hit_shaded(
-    mesh: Mesh,
-    accel: ClusterAccel,
-    o: jnp.ndarray,
-    d: jnp.ndarray,
-    eps: float = 1e-8,
-    interpret: bool | None = None,
-    variant: str = DEFAULT_VARIANT,
-    alive: jnp.ndarray | None = None,
-    t_cap: float | None = None,
-    early_exit: bool | None = None,
-    shared_origin: jnp.ndarray | None = None,
-    ray_tile: int = RAY_TILE,
-    lane_cull: bool = False,
-    wq: bool = False,
-) -> Tuple[Hit, jnp.ndarray]:
-    """The renderer's gather-free fast path: nearest hit + the winning
-    triangle's shading attributes straight out of the kernel. Returns
-    (Hit, attrs [N, 9]) where attrs columns are normal(3) | color(3) |
-    albedo/pi, reflectivity, roughness (0 on miss lanes).
-
-    CONTRACT DIFFERENCE vs nearest_hit_pallas: Hit.tri holds PACKED SLOT
-    ids, not original triangle ids — resolving originals costs a serial
-    per-ray gather (~19.5 ms / 2.56 M rays) that this path exists to avoid.
-    Both t and attrs are differentiable via the fused-walk VJP
-    (_shaded_walk: under differentiation, the forward walk carries the
-    11 backward grad planes alongside the shade planes, so backward is
-    pure elementwise re-derivation + sorted segment reductions with NO
-    second traversal)."""
-    if interpret is None:
-        interpret = not _on_tpu()
-    sg = jax.lax.stop_gradient
-    rays8 = rays_to_soa(sg(o), sg(d), alive=alive)
-    static = (eps, variant, t_cap, early_exit, interpret,
-              shared_origin is not None, ray_tile, lane_cull, wq)
-    so = (sg(shared_origin) if shared_origin is not None
-          else jnp.zeros(3, o.dtype))
-    t, slot, attrs = _shaded_walk(
-        static, mesh.verts, mesh.normals, mesh.colors, mesh.materials,
-        o, d, rays8, sg(mesh.tri_v), jax.tree_util.tree_map(sg, accel),
-        so)
-    hit = jnp.isfinite(sg(t))
-    slot_safe = jnp.where(hit, slot, 0)
-    return Hit(t=t, tri=slot_safe, hit=hit), attrs
 
 
 def any_hit_pallas(
@@ -3854,15 +441,19 @@ def any_hit_pallas(
     o: jnp.ndarray,
     d: jnp.ndarray,
     eps: float = 1e-8,
-    t_max: float = float("inf"),
-    interpret: bool | None = None,
-    variant: str = DEFAULT_VARIANT,
-    alive: jnp.ndarray | None = None,
-    ray_tile: int = RAY_TILE,
-    lane_cull: bool = False,
-    wq: bool = False,
+    t_max=INF,
+    alive: Optional[jnp.ndarray] = None,
+    interpret: bool = False,
 ) -> jnp.ndarray:
+    """Occlusion through the walk kernel: does any triangle meet (o, d)
+    with eps < t < t_max? t_max is a scalar or a per-ray [N] bound."""
     sg = jax.lax.stop_gradient
-    rays8 = rays_to_soa(sg(o), sg(d), alive=alive)
-    return any_hit_soa(accel, rays8, eps, t_max, interpret, variant,
-                       ray_tile=ray_tile, lane_cull=lane_cull, wq=wq)
+    o, d = sg(o), sg(d)
+    t_max = sg(jnp.asarray(t_max, o.dtype))
+    occ = _walk(accel, rays_to_soa(o, d, alive, t_max), eps,
+                nearest=False, interpret=interpret) != 0
+    if accel.rest_ids is not None:
+        rt = rest_triangles(jax.tree_util.tree_map(sg, mesh), accel)
+        occ = occ | any_hit_brute(rt, o, d, t_max, eps,
+                                  block=max(8, accel.rest_ids.shape[0]))
+    return occ

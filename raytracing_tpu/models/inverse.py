@@ -16,20 +16,13 @@ multi-resolution or re-trace (the accel rebuild is host-side and cheap).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional
 
 import jax
 import jax.numpy as jnp
 import optax
 
-import numpy as np
-
-from raytracing_tpu.accel.packets import (
-    ClusterAccel,
-    build_cluster_accel,
-    first_tri_per_object,
-    refit_attr_planes,
-)
+from raytracing_tpu.accel.packets import ClusterAccel, build_cluster_accel
 from raytracing_tpu.config import RenderConfig
 from raytracing_tpu.geometry.mesh import Mesh, Scene
 from raytracing_tpu.geometry.transform import apply_pose
@@ -74,13 +67,11 @@ def fit(
     primary rays, renders them with the current parameters, and descends the
     L2 loss against the target image's corresponding pixels.
 
-    Accel freshness: when an accel is given, its attribute planes are
-    refit from the live parameters INSIDE every step (device-side, cheap),
-    so color/material/normal edits shade correctly on the pallas backend.
-    Geometry (verts/pose) additionally goes stale in the accel's BOUNDS
-    and triangle blocks; set rebuild_every=k (>0) to host-rebuild the
-    structure every k steps when fitting geometry with an accel backend
-    (the standard refit contract, see ClusterAccel).
+    Accel freshness: shading reads the live color/material/normal tables
+    on every backend, but geometry (verts/pose) goes stale in the accel's
+    BOUNDS and triangle blocks; set rebuild_every=k (>0) to host-rebuild
+    the structure every k steps when fitting geometry with an accel
+    backend (the standard refit contract, see ClusterAccel).
 
     Elastic recovery: retries>0 runs every step through
     utils.resilience.with_retry (transient XLA runtime faults are
@@ -94,15 +85,7 @@ def fit(
     opt = optimizer or optax.adam(learning_rate)
     opt_state = opt.init(params)
 
-    refits_attrs = accel is not None and bool(
-        {"colors", "materials", "verts", "pose"} & set(params))
     geo_params = bool({"verts", "pose"} & set(params))
-    first_tri = None
-    if refits_attrs and accel.attr_tables is not None:
-        # Precompute while obj_id is concrete — inside step_fn the mesh is
-        # traced and refit_attr_planes could not derive it itself.
-        first_tri = first_tri_per_object(scene.mesh.obj_id,
-                                         accel.attr_tables.shape[0])
 
     o_all, d_all = camera_rays(config)
     spp, h, w = o_all.shape[:3]
@@ -120,10 +103,8 @@ def fit(
 
         def loss_fn(p):
             mesh = apply_params(scene.mesh, p, pose_obj)
-            acc = accel_s
-            if refits_attrs:
-                acc = refit_attr_planes(acc, mesh, first_tri)
-            rgb = render_rays(mesh, acc, scene.sun, o, d, k_render, config)
+            rgb = render_rays(mesh, accel_s, scene.sun, o, d, k_render,
+                              config)
             return jnp.mean((rgb - tgt) ** 2)
 
         loss, grads = jax.value_and_grad(loss_fn)(params)

@@ -37,7 +37,7 @@ from raytracing_tpu.models.whitted import _cached_body, _dispatch_chunks, shade
 from raytracing_tpu.ops.color import gamma_correct
 from raytracing_tpu.ops.intersect import reflect
 from raytracing_tpu.ops.sampling import cosine_hemisphere
-from raytracing_tpu.tracer import nearest_hit_shaded
+from raytracing_tpu.tracer import nearest_hit, resolve_backend
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,9 +51,7 @@ class PathTracerConfig:
     # odd bounces trace in the previous bounce's frame. NOTE: values
     # != 1 change which position-indexed RNG draw each path receives,
     # so images differ sample-by-sample (statistically equivalent
-    # estimator, not bit-equal). Measured on v5e: 1 is also FASTER
-    # (6.7 s vs 10.6 s at 2 — unsorted bounce walks cost more than the
-    # sorts they save), so this knob exists to document that result.
+    # estimator, not bit-equal).
     bin_every: int = 1
 
 
@@ -83,8 +81,8 @@ def trace_paths(
     radiance = jnp.zeros((r, 3), dtype=o.dtype)
     throughput = jnp.ones((r, 3), dtype=o.dtype)
     alive = jnp.ones(r, dtype=bool)
-    binning = (config.backend == "pallas" and accel is not None
-               and config.bin_secondary)
+    binning = (resolve_backend(config.backend) == "pallas"
+               and accel is not None and config.bin_secondary)
     orig = jnp.arange(r, dtype=jnp.int32)
 
     for bounce in range(pt.max_bounces):
@@ -100,20 +98,8 @@ def trace_paths(
             kb_ = bounce_bin_key(o, d, lo_, hi_, alive)
             _, (o, d, alive, throughput, radiance, orig) = bin_sort(
                 kb_, o, d, alive, throughput, radiance, orig)
-        h, attrs = nearest_hit_shaded(
-            mesh, acc_l, o, d, config, alive=alive,
-            early_exit=(True if bounce > 0 and config.gi_early_exit
-                        else None),
-            shared_origin=(o[0] if bounce == 0
-                           and config.primary_shared_origin else None),
-            ray_tile=(config.gi_ray_tile or None) if bounce > 0 else None,
-            lane_cull=config.gi_lane_cull and bounce > 0,
-            wq=config.gi_wq and bounce > 0)
-        sh = shade(mesh, acc_l, sun, o, d, h, config, attrs=attrs,
-                   ray_tile=(config.gi_ray_tile or None) if bounce > 0
-                   else None,
-                   lane_cull=config.gi_lane_cull and bounce > 0,
-                   wq=config.gi_wq and bounce > 0)
+        h = nearest_hit(mesh, acc_l, o, d, config, alive=alive)
+        sh = shade(mesh, acc_l, sun, o, d, h, config)
         hit = h.hit & alive
         # Miss -> sky, path ends.
         radiance = radiance + jnp.where(
@@ -193,8 +179,8 @@ def render(
     # One program per chunk, parameterized only by (chunk index, key):
     # rays are generated on device and the spp loop is a device-side scan
     # INSIDE the program; chunks are dispatched in bounded host bursts
-    # (see whitted.CHUNK_BURST for the measured dispatch rationale). The
-    # compiled body is cached across render() calls (whitted._cached_body).
+    # (see whitted.CHUNK_BURST). The compiled body is cached across
+    # render() calls (whitted._cached_body).
     def make():
         def chunk_mean(i, key):
             ids = i * chunk + jnp.arange(chunk, dtype=jnp.int32)

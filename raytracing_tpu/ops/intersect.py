@@ -1,14 +1,16 @@
 """Ray/primitive intersection math — the framework's innermost loop.
 
-TPU-native re-design of the reference's intersection layer:
+Re-design of the reference's intersection layer:
   * scalar Möller–Trumbore  `Triangle::ray_hits`   (/root/reference/src/objects.rs:273-308)
   * 8-wide AVX2 Möller–Trumbore `PackedTriangles::intersect` (simd_accel.rs:282-331)
   * scalar slab test `box_intersection_check`       (objects.rs:322-333)
   * 8-wide slab test `PackedBoxes::intersect`       (simd_accel.rs:343-377)
 
 Instead of 8 fixed `__m256` lanes, every function here is written on
-broadcastable arrays and compiled by XLA onto the 8x128 VPU — the "lane
-count" is whatever batch shape the caller brings. Misses are encoded as
+broadcastable arrays and compiled by XLA — the "lane count" is whatever
+batch shape the caller brings. (The Pallas walk, kernels/traverse.py,
+computes the same Möller–Trumbore expression in the same operation
+order.) Misses are encoded as
 t = +inf (the reference encodes them as a -1.0 blend + a sign movemask,
 `simd_accel.rs:318-330`; +inf composes directly with min-reductions and
 avoids the separate mask word).
@@ -63,7 +65,7 @@ def moller_trumbore(
     """
     pvec = cross(d, tri.e2)
     det = dot(tri.e1, pvec)
-    # No early-out branches: on TPU all lanes compute; the mask kills bad
+    # No early-out branches: all lanes compute; the mask kills bad
     # lanes. The division is taken against a mask-safe det: a raw 1/0 = inf
     # would be fine forward (masked) but poisons reverse-mode with 0*inf
     # NaNs through the product-rule cotangents — the where() must be

@@ -3,7 +3,7 @@
 Replaces glam's Vec3 (reference dep) and the hand-rolled SoA AVX helpers
 `avx_multi_cross` / `avx_multi_dot` / etc. (`/root/reference/src/simd_accel.rs:
 110-245`). Everything here is shape-polymorphic over leading batch dims and
-differentiable; XLA vectorizes it onto the VPU.
+differentiable; XLA vectorizes and fuses it.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ def dot(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
 
 def cross(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Batched 3-vector cross product (expanded for clean fusion on TPU)."""
+    """Batched 3-vector cross product (expanded for clean fusion)."""
     ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
     bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
     return jnp.stack(

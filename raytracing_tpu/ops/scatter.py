@@ -1,13 +1,13 @@
-"""Sort-based segment scatter-add: the TPU replacement for `.at[].add`.
+"""Sort-based segment scatter-add: a deterministic `.at[].add`.
 
-On this TPU runtime a ray-sized scatter-add is executed SERIALLY (~7
-cycles/element) and conflict-serialized on duplicate indices — measured
-~1.7 s of a 2.5 s backward pass for the lazy-VJP table gradients at
-wavefront sizes (~9M rays/loss). The same reduction as sort + cumsum +
-segment-boundary differences is all vector work:
+A ray-sized scatter-add into a small table has heavy index conflicts
+(every ray that hits one triangle adds into the same rows); on a GPU it
+runs as atomics whose summation order changes from run to run. The same
+reduction as sort + cumsum + segment-boundary differences is all vector
+work and sums in a fixed order:
 
-    sort rows by index            (variadic lax.sort — the fast payload
-                                   permutation primitive on this runtime)
+    sort rows by index            (variadic lax.sort — one payload
+                                   permutation for all columns)
     cumsum over the sorted rows   (log-depth associative scan)
     per-segment sum = csum[end] - csum[start]   (two TABLE-sized gathers,
                                    thousands of elements, not millions)

@@ -1,10 +1,10 @@
 """Scene-level nearest-hit / any-hit queries, brute-force backend.
 
 This is the framework's oracle: every accelerated backend (cluster XLA,
-Pallas megakernel) must produce results allclose to these functions. It
+the Pallas walk) must produce results allclose to these functions. It
 replaces the reference's 3-stage walk over PackedBoxes/PackedTriangles/rest
 loops (/root/reference/src/main.rs:93-171 nearest, :176-234 any-hit) with a
-block-scanned full intersection — on TPU the "early-out" structure of the
+block-scanned full intersection — the "early-out" structure of the
 reference is replaced by masked vector work; culling arrives with the accel
 backends.
 """

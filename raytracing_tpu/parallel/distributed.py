@@ -1,16 +1,16 @@
 """Multi-host distribution: jax.distributed wiring + global-mesh render.
 
 The reference is a single process with a thread pool (SURVEY.md §2.8); the
-TPU-native scale-out path is:
+scale-out path here is:
 
   1. `initialize()` — wire `jax.distributed` from explicit args, our env
      vars (RTPU_COORDINATOR / RTPU_NUM_PROCESSES / RTPU_PROCESS_ID), or
-     the TPU pod auto-detection JAX performs when no args are given.
-  2. one global 1-D mesh over every chip of every host ("rays" axis) —
+     the cluster auto-detection JAX performs when no args are given.
+  2. one global 1-D mesh over every device of every host ("rays" axis) —
      rays are independent, so a 1-D data-parallel axis is the whole
      story: geometry replicates, the forward pass needs zero cross-host
      traffic, and the only collectives are `pmean` loss/grad reductions
-     (riding ICI within a host, DCN across hosts) in the train step.
+     (NVLink within a host, the network across hosts) in the train step.
   3. `render_distributed` — every process generates ONLY its addressable
      ray shards (camera rays are index arithmetic, so no host holds the
      full frame), renders them, and `save_local_shards` writes per-host
@@ -18,7 +18,8 @@ TPU-native scale-out path is:
 
 The 2-process CPU smoke test (tests/test_distributed_smoke.py) runs this
 file end-to-end under `xla_force_host_platform_device_count`, the same
-way the driver's dryrun validates single-process multi-chip sharding.
+way __graft_entry__.dryrun_multichip validates single-process
+multi-device sharding.
 """
 
 from __future__ import annotations
@@ -51,8 +52,8 @@ def initialize(
     RTPU_COORDINATOR / RTPU_NUM_PROCESSES / RTPU_PROCESS_ID environment
     variables. With num_processes <= 1 (or nothing set) this is a no-op
     returning False — single-process runs never pay for a coordinator.
-    On TPU pod slices all three may be omitted but RTPU_NUM_PROCESSES set
-    to 'auto' to use JAX's cluster auto-detection.
+    On a cluster JAX can detect, all three may be omitted but
+    RTPU_NUM_PROCESSES set to 'auto' to use JAX's auto-detection.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "RTPU_COORDINATOR")

@@ -1,19 +1,19 @@
-"""Multi-device scaling: shard the ray batch, replicate the scene.
+"""Multi-device scaling: shard the ray work, replicate the scene.
 
 The reference's only parallelism is a rayon thread pool over scanlines
-(/root/reference/src/main.rs:317-319) inside one process. The TPU-native
-counterpart (SURVEY.md §2.8): a 1-D `jax.sharding.Mesh` over all chips
-(ICI-connected; extends to multi-host pods via jax.distributed), primary
-rays sharded along the "rays" axis with `shard_map`, geometry/BVH/materials
-replicated, and — for inverse rendering — parameter gradients `pmean`-ed
-across the mesh so every device steps identically. Rays are independent, so
-the forward pass needs zero cross-device traffic; the only collectives are
-the gradient/loss reductions, which XLA overlaps with the backward pass.
+(/root/reference/src/main.rs:317-319) inside one process. Here (SURVEY.md
+§2.8): a 1-D `jax.sharding.Mesh` over the devices (every card of a host
+reaches every other at the same rate, so the mesh follows the algorithm
+alone; it extends to multiple hosts via jax.distributed), ray work sharded
+along the "rays" axis with `shard_map`, geometry/BVH/materials replicated,
+and — for inverse rendering — parameter gradients `pmean`-ed across the
+mesh so every device steps identically. Rays are independent, so the
+forward pass needs zero cross-device traffic; the only collectives are the
+gradient/loss reductions.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Any, Callable, Optional, Tuple
 
 import jax
@@ -27,7 +27,6 @@ from jax import shard_map
 from raytracing_tpu.accel.packets import ClusterAccel
 from raytracing_tpu.config import RenderConfig
 from raytracing_tpu.geometry.mesh import Mesh, Scene
-from raytracing_tpu.models.camera import camera_rays
 from raytracing_tpu.models.whitted import render_rays
 
 RAY_AXIS = "rays"
@@ -56,69 +55,64 @@ def render_sharded(
     key: Optional[jax.Array] = None,
     gi_accel: Optional[ClusterAccel] = None,
 ) -> jnp.ndarray:
-    """Full-frame render with primary rays sharded across the mesh.
+    """Full-frame render with the frame's chunk programs spread across the
+    mesh.
 
-    Geometry, accel(s), and lights are replicated (in_specs P()); each
-    device renders its ray shard with a device-unique RNG stream; the
-    image is re-assembled by the output sharding (no collective needed —
-    rays are independent). Carries the FULL frame capability: the scene's
-    area lights and an optional coarse gi_accel shard exactly like the
-    single-device render path."""
+    Runs exactly `whitted.render`'s chunk decomposition (same ray order,
+    same per-chunk RNG keys, same per-chunk program), with chunk i on
+    device i // (chunks per device); geometry, accel(s) and lights are
+    replicated. So the image equals the single-device render up to
+    floating-point differences between two compilations of the same
+    program. Carries the FULL frame capability: area lights and an
+    optional coarse gi_accel."""
+    from raytracing_tpu.models.whitted import _auto_gi_accel, frame_program
+
     if key is None:
         key = jax.random.PRNGKey(0)
+    if gi_accel is None:
+        gi_accel = _auto_gi_accel(scene.mesh, accel, config)
+    prog = frame_program(scene, config, accel, gi_accel)
     n_dev = device_mesh.devices.size
-    o, d = camera_rays(config)
-    spp, h, w = o.shape[:3]
-    r = spp * h * w
-    o = _pad_to(o.reshape(r, 3), n_dev * config.chunk_size)
-    d = _pad_to(d.reshape(r, 3), n_dev * config.chunk_size)
-
-    fn = _sharded_render_fn(config, device_mesh)
-    lights = getattr(scene, "lights", None)
-    rgb = fn(scene.mesh, accel, gi_accel, lights, scene.sun, o, d, key)[:r]
-    return rgb.reshape(spp, h, w, 3).mean(axis=0)
+    nc_pad = -(-prog.nc // n_dev) * n_dev
+    # Padding chunks repeat the last chunk; their rows are dropped.
+    ids = jnp.minimum(jnp.arange(nc_pad, dtype=jnp.int32), prog.nc - 1)
+    keys = _pad_to(jax.random.split(key, prog.nc), n_dev)
+    fn = _sharded_render_fn(prog, device_mesh)
+    rgb = fn(ids, keys)[:prog.nc * prog.chunk]
+    return prog.finish(rgb)
 
 
 # jit executable cache for render_sharded: a fresh jax.jit(shard_map(...))
-# wrapper per call would start with an EMPTY jit cache, so every frame of an
-# animate loop (and every timed iteration of bench_suite.bench_scaling)
-# would re-trace and re-enter XLA compile — the same recompile pathology the
-# jit-of-shard_map note below describes, one level up. Keyed on the frozen
-# config + the mesh's device tuple (both fully determine the traced fn).
+# wrapper per call would start with an EMPTY jit cache, so every frame of
+# an animate loop would re-trace and re-enter XLA compile. Keyed like the
+# single-device chunk-body cache (whitted._cached_body) plus the mesh's
+# device tuple; entries keep the captured objects alive so their ids
+# cannot be recycled.
 _SHARDED_FN_CACHE: dict = {}
 
 
-def _sharded_render_fn(config: RenderConfig, device_mesh: DeviceMesh):
-    cache_key = (config, tuple(device_mesh.devices.flat))
-    fn = _SHARDED_FN_CACHE.get(cache_key)
-    if fn is not None:
-        return fn
+def _sharded_render_fn(prog, device_mesh: DeviceMesh):
+    cache_key = (prog.cache_key, tuple(device_mesh.devices.flat))
+    hit = _SHARDED_FN_CACHE.get(cache_key)
+    if hit is not None:
+        return hit[0]
+    body = prog.make_body()
 
-    def local(mesh: Mesh, accel_, gi_accel_, lights_, sun, o_l, d_l, key_):
-        key_l = jax.random.fold_in(key_, jax.lax.axis_index(RAY_AXIS))
-        chunk = config.chunk_size
-        nc = o_l.shape[0] // chunk
-        keys = jax.random.split(key_l, nc)
-        rgb = jax.lax.map(
-            lambda args: render_rays(mesh, accel_, sun, args[0], args[1],
-                                     args[2], config, lights=lights_,
-                                     gi_accel=gi_accel_),
-            (o_l.reshape(nc, chunk, 3), d_l.reshape(nc, chunk, 3), keys),
-        )
+    def local(ids_l, keys_l):
+        rgb = jax.lax.map(lambda a: body(a[0], a[1]), (ids_l, keys_l))
         return rgb.reshape(-1, 3)
 
     # jit-of-shard_map: an EAGER shard_map call re-traces and re-compiles
-    # on every invocation (measured ~23 s/call for the train step on the
-    # 8-device CPU mesh); under jit the executable is cached (and lands in
-    # the persistent compilation cache).
+    # on every invocation; under jit the executable is cached (and lands
+    # in the persistent compilation cache).
     fn = jax.jit(shard_map(
         local,
         mesh=device_mesh,
-        in_specs=(P(), P(), P(), P(), P(), P(RAY_AXIS), P(RAY_AXIS), P()),
+        in_specs=(P(RAY_AXIS), P(RAY_AXIS)),
         out_specs=P(RAY_AXIS),
         check_vma=False,
     ))
-    _SHARDED_FN_CACHE[cache_key] = fn
+    _SHARDED_FN_CACHE[cache_key] = (fn, prog.refs)
     return fn
 
 

@@ -1,11 +1,13 @@
 """Backend dispatch for scene intersection queries.
 
 One call surface, three engines:
-  "bruteforce" — ops/trace.py, the oracle (works on any backend incl. CPU)
+  "bruteforce" — ops/trace.py, the oracle (any device)
   "cluster"    — accel/packets.py, flat cluster hierarchy in pure XLA
-  "pallas"     — kernels/traverse.py, Pallas TPU megakernel (tile-granular
-                 cluster skipping — the reference's early-out traversal,
-                 main.rs:93-171, reborn at ray-tile granularity)
+                 (slab-culled clusters are masked, not skipped)
+  "pallas"     — kernels/traverse.py, the Pallas walk compiled through
+                 Triton for a CUDA GPU (block-granular cluster skipping —
+                 the reference's early-out traversal, main.rs:93-171)
+  "auto"       — "pallas" on a GPU, "cluster" elsewhere
 
 The backend string lives in the static RenderConfig, so the choice is a
 trace-time Python branch — zero runtime dispatch under jit.
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import jax
 import jax.numpy as jnp
 
 from raytracing_tpu.accel.packets import (
@@ -27,18 +30,19 @@ from raytracing_tpu.geometry.mesh import Mesh, triangle_soa
 from raytracing_tpu.ops.intersect import INF
 from raytracing_tpu.ops.trace import Hit, any_hit_brute, nearest_hit_brute
 
+BACKENDS = ("auto", "bruteforce", "cluster", "pallas")
+
 
 def resolve_backend(backend: str) -> str:
-    """Resolve the "auto" backend choice: the Pallas megakernels on TPU
-    (the fast path every benchmark measures), the pure-XLA cluster
-    hierarchy elsewhere (CPU/interpret-mode Pallas is a debugging oracle,
-    not a production path). The reference is fast by default — the
-    quickstart should be too. Explicit names pass through untouched."""
-    import jax
-
+    """Resolve "auto": the Pallas walk where it compiles (a CUDA GPU, where
+    it renders the reference frame faster than the XLA cluster scan — see
+    PERF.md), the XLA cluster scan elsewhere. Explicit names pass through
+    untouched."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
     if backend != "auto":
         return backend
-    return "pallas" if jax.default_backend() == "tpu" else "cluster"
+    return "pallas" if jax.default_backend() == "gpu" else "cluster"
 
 
 def nearest_hit(
@@ -50,57 +54,19 @@ def nearest_hit(
     alive: Optional[jnp.ndarray] = None,
 ) -> Hit:
     """alive: optional [R] bool wavefront mask — dead lanes may carry
-    garbage rays; accelerated backends exclude them from culling decisions
-    and their results are meaningless (callers mask by weight). Dense
+    garbage rays; the walk leaves them out of its culling decisions and
+    their results are meaningless (callers mask by weight). Dense
     backends ignore it."""
-    if config.backend == "bruteforce" or accel is None:
+    backend = resolve_backend(config.backend)
+    if backend == "bruteforce" or accel is None:
         tri = triangle_soa(mesh.verts, mesh.tri_v)
         return nearest_hit_brute(tri, o, d, config.eps)
-    if config.backend == "cluster":
+    if backend == "cluster":
         return nearest_hit_cluster(mesh, accel, o, d, config.eps)
-    if config.backend == "pallas":
-        from raytracing_tpu.kernels.traverse import nearest_hit_pallas
+    from raytracing_tpu.kernels.traverse import nearest_hit_pallas
 
-        return nearest_hit_pallas(mesh, accel, o, d, config.eps,
-                                  alive=alive)
-    raise ValueError(f"unknown backend {config.backend!r}")
-
-
-def nearest_hit_shaded(
-    mesh: Mesh,
-    accel: Optional[ClusterAccel],
-    o: jnp.ndarray,
-    d: jnp.ndarray,
-    config: RenderConfig,
-    alive: Optional[jnp.ndarray] = None,
-    t_cap: Optional[float] = None,
-    early_exit: Optional[bool] = None,
-    shared_origin: Optional[jnp.ndarray] = None,
-    ray_tile: Optional[int] = None,
-    lane_cull: bool = False,
-    wq: bool = False,
-):
-    """Nearest hit plus (on the pallas backend) the winning triangle's
-    shading attributes accumulated inside the kernel — the gather-free hot
-    path for renderers. Returns (Hit, attrs [N, 9] | None); attrs is None
-    on backends that have no cheap attribute path (callers fall back to
-    the fused row gather). NOTE: when attrs is not None, Hit.tri holds
-    packed slot ids (see kernels.traverse.nearest_hit_shaded).
-
-    t_cap: optional two-phase cap for incoherent batches (pallas only —
-    other backends ignore it; results are identical either way)."""
-    if config.backend == "pallas" and accel is not None:
-        from raytracing_tpu.kernels.traverse import (
-            RAY_TILE,
-            nearest_hit_shaded as _shaded,
-        )
-
-        return _shaded(mesh, accel, o, d, config.eps, alive=alive,
-                       t_cap=t_cap, early_exit=early_exit,
-                       shared_origin=shared_origin,
-                       ray_tile=ray_tile or RAY_TILE,
-                       lane_cull=lane_cull, wq=wq)
-    return nearest_hit(mesh, accel, o, d, config, alive=alive), None
+    return nearest_hit_pallas(mesh, accel, o, d, config.eps, alive=alive,
+                              interpret=config.interpret)
 
 
 def any_hit(
@@ -111,19 +77,14 @@ def any_hit(
     config: RenderConfig,
     t_max=INF,
     alive: Optional[jnp.ndarray] = None,
-    ray_tile: Optional[int] = None,
-    lane_cull: bool = False,
-    wq: bool = False,
 ) -> jnp.ndarray:
-    if config.backend == "bruteforce" or accel is None:
+    backend = resolve_backend(config.backend)
+    if backend == "bruteforce" or accel is None:
         tri = triangle_soa(mesh.verts, mesh.tri_v)
         return any_hit_brute(tri, o, d, t_max, config.eps)
-    if config.backend == "cluster":
+    if backend == "cluster":
         return any_hit_cluster(mesh, accel, o, d, t_max, config.eps)
-    if config.backend == "pallas":
-        from raytracing_tpu.kernels.traverse import RAY_TILE, any_hit_pallas
+    from raytracing_tpu.kernels.traverse import any_hit_pallas
 
-        return any_hit_pallas(mesh, accel, o, d, config.eps, t_max,
-                              alive=alive, ray_tile=ray_tile or RAY_TILE,
-                              lane_cull=lane_cull, wq=wq)
-    raise ValueError(f"unknown backend {config.backend!r}")
+    return any_hit_pallas(mesh, accel, o, d, config.eps, t_max,
+                          alive=alive, interpret=config.interpret)

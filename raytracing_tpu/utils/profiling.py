@@ -6,7 +6,7 @@ The reference's only runtime metrics are an fps print once per second
 §5). Here the equivalents are first-class: a RateMeter for fps/rays-per-
 second, wall-clock timers that block on device work, and a context manager
 around `jax.profiler.trace` producing xprof/tensorboard traces for
-per-kernel roofline analysis on TPU.
+per-kernel analysis on the device.
 """
 
 from __future__ import annotations

@@ -2,9 +2,9 @@
 
 The reference has none of this — errors are `unwrap()`/`process::exit`
 (/root/reference/src/main.rs:46,:497-500) and all state dies with the
-process (SURVEY.md §5). A TPU production service needs more: the device
-is a *remote* resource behind a runtime that can drop, hang, or be
-preempted independently of the host process. This module provides the
+process (SURVEY.md §5). A production render service needs more: the
+device sits behind a runtime that can drop, hang, or be preempted
+independently of the host process. This module provides the
 three primitives the app/fit loops build recovery from:
 
   * `device_alive()` — cheap liveness probe: one tiny op on the target
@@ -18,8 +18,8 @@ three primitives the app/fit loops build recovery from:
     loops: `run_step` executes a step under retry; on unrecoverable
     device loss it writes a final checkpoint and re-raises. A restarted
     process resumes from that checkpoint (`fit --resume`), which is the
-    TPU-native analog of elastic training-job recovery: state lives in
-    host checkpoints, the device is disposable.
+    analog of elastic training-job recovery: state lives in host
+    checkpoints, the device is disposable.
 
 Everything is host-side python (no jit interaction): the unit of retry is
 a whole dispatched step, which is the granularity at which the XLA
@@ -139,7 +139,7 @@ class Supervisor:
     Wraps each step in `with_retry`; when the device is finally declared
     lost, snapshots `state_fn()` via utils.checkpoint to `checkpoint_path`
     and raises DeviceLost carrying that path. A fresh process resumes from
-    the checkpoint — state outlives the device, the TPU-native elasticity
+    the checkpoint — state outlives the device, the elasticity
     model (SURVEY.md §5: reference has nothing; we define the contract).
     """
 

@@ -1,8 +1,8 @@
 """Live terminal presentation of rendered frames.
 
 The reference presents frames in a winit window with a pixels GPU blit
-(/root/reference/src/main.rs:383-399, :497-500). A TPU render service is
-headless — its "window" is whatever terminal the operator is attached to
+(/root/reference/src/main.rs:383-399, :497-500). An accelerator render
+service is headless — its "window" is whatever terminal the operator is attached to
 — so the live analog is ANSI truecolor half-block art: each character
 cell shows two image rows (upper-half-block glyph: foreground = top
 pixel, background = bottom pixel), giving a WxH/2-character live preview

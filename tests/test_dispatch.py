@@ -81,8 +81,8 @@ def test_bin_sort_unsort_roundtrip():
 
 def test_bin_sort_custom_vjp_matches_native_sort_grad():
     """bin_sort/unsort carry a custom VJP that moves cotangents with a
-    variadic payload sort (per-element scatter transposes are serial on
-    TPU). The gradient must equal jax's native lax.sort autodiff exactly."""
+    variadic payload sort instead of a scatter transpose. The gradient
+    must equal jax's native lax.sort autodiff exactly."""
     rng = np.random.default_rng(7)
     n = 1024
     key_arr = jnp.asarray(rng.integers(0, 257, n), jnp.int32)
@@ -111,84 +111,6 @@ def test_bin_sort_custom_vjp_matches_native_sort_grad():
     g_native = jax.jit(jax.grad(loss_native))(x)
     np.testing.assert_allclose(np.asarray(g_custom), np.asarray(g_native),
                                rtol=1e-6, atol=1e-7)
-
-
-def test_grouped_walk_matches_single_group():
-    """>VMEM scenes traverse as a sequence of resident cluster groups;
-    forcing a tiny budget on the teapot scene must reproduce the single-
-    group results bit-for-bit (nearest, attrs, any-hit)."""
-    from raytracing_tpu.accel import packets as pk
-    from raytracing_tpu.geometry.scene import build_default_scene
-    from raytracing_tpu.kernels import traverse as tv
-
-    scene = build_default_scene(t=0.0)
-    accel = pk.build_cluster_accel(scene.mesh, cluster_size=16)
-    rng = np.random.default_rng(0)
-    n = 256  # interpret-mode walks dominate this test's wall time
-    o = jnp.zeros((n, 3))
-    th = rng.uniform(-0.5, 0.5, n)
-    ph = rng.uniform(-0.2, 0.5, n)
-    d = jnp.asarray(np.stack([np.sin(th), np.sin(ph), np.ones(n)],
-                             -1).astype(np.float32))
-    rays8 = tv.rays_to_soa(o, d)
-    t1, id1 = tv.nearest_hit_soa(accel, rays8, interpret=True)
-    _, s1, a1 = tv.nearest_hit_attrs_soa(accel, rays8, interpret=True)
-    occ1 = tv.any_hit_soa(accel, rays8, interpret=True)
-
-    saved = pk._PALLAS_BLOCK_BUDGET_BYTES
-    try:
-        pk._PALLAS_BLOCK_BUDGET_BYTES = 300 * 8192  # ~4 groups
-        tg, idg = tv.nearest_hit_soa(accel, rays8, interpret=True)
-        _, sg, ag = tv.nearest_hit_attrs_soa(accel, rays8, interpret=True)
-        occg = tv.any_hit_soa(accel, rays8, interpret=True)
-    finally:
-        pk._PALLAS_BLOCK_BUDGET_BYTES = saved
-
-    m = np.isfinite(np.asarray(tg))
-    np.testing.assert_array_equal(np.asarray(tg), np.asarray(t1))
-    np.testing.assert_array_equal(np.asarray(idg)[m], np.asarray(id1)[m])
-    np.testing.assert_array_equal(np.asarray(sg)[m], np.asarray(s1)[m])
-    np.testing.assert_array_equal(np.asarray(ag)[:, m], np.asarray(a1)[:, m])
-    np.testing.assert_array_equal(np.asarray(occg), np.asarray(occ1))
-
-
-def test_streamed_groups_early_exit_and_fallback_agree():
-    """The streamed-groups launch (STREAM_GROUPS, _gstream_kernel) must
-    match the python-loop group fallback bit-for-bit, including with the
-    per-group front-to-back early exit forced on."""
-    from raytracing_tpu.accel import packets as pk
-    from raytracing_tpu.geometry.scene import build_default_scene
-    from raytracing_tpu.kernels import traverse as tv
-
-    scene = build_default_scene(t=0.0)
-    accel = pk.build_cluster_accel(scene.mesh, cluster_size=16)
-    rng = np.random.default_rng(3)
-    n = 256
-    o = jnp.zeros((n, 3))
-    th = rng.uniform(-0.5, 0.5, n)
-    ph = rng.uniform(-0.2, 0.5, n)
-    d = jnp.asarray(np.stack([np.sin(th), np.sin(ph), np.ones(n)],
-                             -1).astype(np.float32))
-    rays8 = tv.rays_to_soa(o, d)
-
-    saved_b = pk._PALLAS_BLOCK_BUDGET_BYTES
-    saved_ee = tv._EARLY_EXIT_MIN_CLUSTERS
-    saved_sg = tv.STREAM_GROUPS
-    try:
-        pk._PALLAS_BLOCK_BUDGET_BYTES = 300 * 8192  # ~4 groups
-        tv._EARLY_EXIT_MIN_CLUSTERS = 1  # force early exit in both paths
-        tv.STREAM_GROUPS = False
-        t0, s0, a0 = tv.nearest_hit_attrs_soa(accel, rays8, interpret=True)
-        tv.STREAM_GROUPS = True
-        t1, s1, a1 = tv.nearest_hit_attrs_soa(accel, rays8, interpret=True)
-    finally:
-        pk._PALLAS_BLOCK_BUDGET_BYTES = saved_b
-        tv._EARLY_EXIT_MIN_CLUSTERS = saved_ee
-        tv.STREAM_GROUPS = saved_sg
-    assert np.isfinite(np.asarray(t1)).any()
-    np.testing.assert_array_equal(np.asarray(t0), np.asarray(t1))
-    np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
-    np.testing.assert_array_equal(np.asarray(a0), np.asarray(a1))
 
 
 def test_subdivided_teapot_same_surface():

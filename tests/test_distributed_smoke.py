@@ -1,6 +1,7 @@
 """2-process multi-host smoke test: jax.distributed over the CPU backend
 (2 processes x 4 virtual devices = one 8-device global mesh), the same
-code path a TPU pod slice takes (SURVEY.md §2.8 distributed backend row).
+code path a multi-host GPU cluster takes (SURVEY.md §2.8 distributed
+backend row).
 
 Renders a small frame with `render_distributed` (each process generates
 only its addressable ray shards), writes gather-free per-host shard

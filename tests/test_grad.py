@@ -152,14 +152,14 @@ def test_grad_cluster_backend_matches_brute():
 
 
 def test_grad_pallas_backend_matches_brute():
-    """The pallas backend's hand-written _shaded_walk backward (fused
-    shade+grad-planes forward walk + sorted segment reductions, no second
-    traversal) must reproduce the bruteforce backend's gradients for every
-    parameter table."""
+    """The pallas backend (walk kernel in the interpreter, lazy-t VJP for
+    vertices, shading attributes gathered from the live tables) must
+    reproduce the bruteforce backend's gradients for every parameter
+    table."""
     scene = _tri_scene()
     o, d = _rays()
     accel = build_cluster_accel(scene.mesh, cluster_size=8)
-    cfg_p = dataclasses.replace(CFG, backend="pallas")
+    cfg_p = dataclasses.replace(CFG, backend="pallas", interpret=True)
 
     def loss_with(backend_cfg, acc):
         def f(verts, colors, materials):

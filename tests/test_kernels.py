@@ -1,14 +1,18 @@
-"""Pallas megakernel tests (interpret mode on CPU — the driver/bench
-exercise the compiled TPU path; these pin down semantics vs the oracle)."""
+"""Walk-kernel tests. Here (no GPU) the kernel runs in the Pallas
+interpreter with an explicit interpret=True; these pin down its semantics
+against the bruteforce oracle. Its compiled form is checked by lowering it
+for CUDA (the Triton IR), and on the card by the tests marked `gpu` and by
+chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import raytracing_tpu.kernels.traverse as T
 from raytracing_tpu.accel.packets import build_cluster_accel
 from raytracing_tpu.geometry.mesh import triangle_soa
-from raytracing_tpu.geometry.scene import teapot_only_mesh
+from raytracing_tpu.geometry.scene import build_default_scene, teapot_only_mesh
 from raytracing_tpu.kernels.traverse import any_hit_pallas, nearest_hit_pallas
 from raytracing_tpu.ops.trace import any_hit_brute, nearest_hit_brute
 
@@ -25,15 +29,37 @@ def setup(rng):
     return mesh, accel, jnp.asarray(o), jnp.asarray(d)
 
 
-def test_pallas_nearest_matches_oracle(setup):
-    mesh, accel, o, d = setup
-    hb = nearest_hit_brute(triangle_soa(mesh.verts, mesh.tri_v), o, d)
-    hp = nearest_hit_pallas(mesh, accel, o, d, interpret=True)
+@pytest.fixture(scope="module")
+def scene_rays():
+    """The default scene (two teapots + the rest-set ground plane) and a
+    ray batch mixing teapot hits, ground hits and sky misses."""
+    scene = build_default_scene(t=0.0)
+    rng = np.random.default_rng(11)
+    n = 200
+    o = rng.uniform(-1, 1, size=(n, 3)).astype(np.float32)
+    o[:, 2] = 0.0
+    tgt = np.concatenate([
+        np.array([-0.9, -2.0, 9.0]) + rng.normal(size=(n // 2, 3)) * 2.0,
+        np.array([0.0, -3.0, 40.0]) + rng.normal(size=(n // 4, 3)) * 10.0,
+        np.array([0.0, 40.0, 10.0]) + rng.normal(size=(n - n // 2 - n // 4,
+                                                        3)) * 5.0,
+    ]).astype(np.float32)
+    return scene, jnp.asarray(o), jnp.asarray(tgt - o)
+
+
+def _assert_nearest_matches(hb, hp):
     m = np.asarray(hb.hit)
     np.testing.assert_array_equal(m, np.asarray(hp.hit))
     np.testing.assert_array_equal(np.asarray(hb.tri)[m], np.asarray(hp.tri)[m])
     np.testing.assert_allclose(np.asarray(hb.t)[m], np.asarray(hp.t)[m],
                                rtol=1e-5)
+
+
+def test_pallas_nearest_matches_oracle(setup):
+    mesh, accel, o, d = setup
+    hb = nearest_hit_brute(triangle_soa(mesh.verts, mesh.tri_v), o, d)
+    hp = nearest_hit_pallas(mesh, accel, o, d, interpret=True)
+    _assert_nearest_matches(hb, hp)
 
 
 def test_pallas_anyhit_matches_oracle(setup):
@@ -47,64 +73,18 @@ def test_accel_kernel_blocks_layout(setup):
     mesh, accel, _, _ = setup
     c, rows, cs = accel.tri_blocks.shape
     assert rows == 9 and cs == accel.cluster_size and c == accel.num_clusters
-    assert accel.woop_blocks.shape == (c, 8, 6 * cs)
-    assert accel.order_blocks.shape == (c, cs)
-    # Row layout: v0(3) e1(3) e2(3) per cluster, triangles on lanes.
+    # Row layout: v0(3) e1(3) e2(3) per cluster, triangles on the last axis.
     from raytracing_tpu.accel.packets import packed_triangles
 
     tri = packed_triangles(mesh, accel)
-    np.testing.assert_allclose(
-        np.asarray(accel.tri_blocks[0, 0, :]), np.asarray(tri.v0[:cs, 0]),
-        atol=0
-    )
-    np.testing.assert_allclose(
-        np.asarray(accel.tri_blocks[0, 3, :]), np.asarray(tri.e1[:cs, 0]),
-        atol=0
-    )
-    np.testing.assert_array_equal(
-        np.asarray(accel.order_blocks).reshape(-1), np.asarray(accel.order)
-    )
-
-
-def test_woop_blocks_recover_intersection(setup):
-    """The affine transform must reproduce MT's (t, u, v) on a hit."""
-    mesh, accel, _, _ = setup
-    w = np.asarray(accel.woop_blocks)  # [C, 8, 6*CS]
-    cs = accel.cluster_size
-    tri = np.asarray(accel.tri_blocks)  # [C, 9, CS]
-    # take cluster 0, triangle lane 0
-    v0 = tri[0, 0:3, 0]
-    e1 = tri[0, 3:6, 0]
-    e2 = tri[0, 6:9, 0]
-    center = v0 + e1 / 3.0 + e2 / 3.0
-    o = center - np.array([0.0, 0.0, 2.0])
-    d = np.array([0.0, 0.0, 2.0])
-    ray8 = np.concatenate([o, [1.0], d, [0.0]]).astype(np.float32)
-    out = ray8 @ w[0]  # [6*CS]
-    olz, dlz = out[2 * cs + 0], out[5 * cs + 0]
-    t = -olz / dlz
-    u = out[0 * cs + 0] + t * out[3 * cs + 0]
-    v = out[1 * cs + 0] + t * out[4 * cs + 0]
-    np.testing.assert_allclose(t, 1.0, rtol=1e-3)
-    np.testing.assert_allclose([u, v], [1 / 3, 1 / 3], atol=1e-3)
-
-
-def test_pallas_woop_variant_matches_oracle(setup):
-    mesh, accel, o, d = setup
-    hb = nearest_hit_brute(triangle_soa(mesh.verts, mesh.tri_v), o, d)
-    hp = nearest_hit_pallas(mesh, accel, o, d, interpret=True,
-                            variant="woop")
-    m = np.asarray(hb.hit)
-    np.testing.assert_array_equal(m, np.asarray(hp.hit))
-    np.testing.assert_array_equal(np.asarray(hb.tri)[m], np.asarray(hp.tri)[m])
-    np.testing.assert_allclose(np.asarray(hb.t)[m], np.asarray(hp.t)[m],
-                               rtol=1e-4)
+    blocks = np.asarray(accel.tri_blocks).transpose(0, 2, 1).reshape(-1, 9)
+    np.testing.assert_array_equal(blocks[:, 0:3], np.asarray(tri.v0))
+    np.testing.assert_array_equal(blocks[:, 3:6], np.asarray(tri.e1))
+    np.testing.assert_array_equal(blocks[:, 6:9], np.asarray(tri.e2))
 
 
 def test_pallas_grad_through_lazy_t(setup):
     """Vertex gradients flow through the kernel's lazy-refined t."""
-    import jax
-
     mesh, accel, o, d = setup
 
     def loss(verts):
@@ -118,13 +98,12 @@ def test_pallas_grad_through_lazy_t(setup):
 
 
 def test_visit_list_overflow_fallback(setup, rng, monkeypatch):
-    """Tiles whose true cluster count exceeds the static visit-list width
+    """Blocks whose true cluster count exceeds the static visit-list width
     must fall back to scanning all clusters — incoherent ray batches hit
-    this (the frustum of a random-direction tile covers the whole scene)."""
-    import raytracing_tpu.kernels.traverse as T
-
+    this (the frustum of a random-direction block covers the whole
+    scene)."""
     mesh, accel, _, _ = setup
-    monkeypatch.setattr(T, "_MAX_VISITS", 2)  # force overflow on any tile
+    monkeypatch.setattr(T, "MAX_VISITS", 2)  # force overflow on any block
     n = 64
     o = rng.uniform(-1, 1, size=(n, 3)).astype(np.float32)
     d = rng.normal(size=(n, 3)).astype(np.float32)  # fully incoherent
@@ -137,59 +116,27 @@ def test_visit_list_overflow_fallback(setup, rng, monkeypatch):
     np.testing.assert_array_equal(np.asarray(hb.tri)[m], np.asarray(hp.tri)[m])
 
 
-def test_ids_mode_smem_sliced_parity(setup, monkeypatch):
-    """Sliced-SMEM visit lists (IDS_MODE='smem' — one launch at any tile
-    count) must match the scalar-prefetch default exactly, on both the
-    plain walk and the early-exit walk (which threads the tnear table
-    through the same sliced plumbing)."""
-    import raytracing_tpu.kernels.traverse as T
-
-    mesh, accel, o, d = setup
-    ref = nearest_hit_pallas(mesh, accel, o, d, interpret=True)
-    monkeypatch.setattr(T, "IDS_MODE", "smem")
-    got = nearest_hit_pallas(mesh, accel, o, d, interpret=True)
-    np.testing.assert_array_equal(np.asarray(ref.hit), np.asarray(got.hit))
-    np.testing.assert_array_equal(np.asarray(ref.tri), np.asarray(got.tri))
-    np.testing.assert_array_equal(np.asarray(ref.t), np.asarray(got.t))
-    monkeypatch.setattr(T, "_EARLY_EXIT_MIN_CLUSTERS", 1)
-    got2 = nearest_hit_pallas(mesh, accel, o, d, interpret=True)
-    np.testing.assert_array_equal(np.asarray(ref.t), np.asarray(got2.t))
-    np.testing.assert_array_equal(np.asarray(ref.tri), np.asarray(got2.tri))
-
-
-def test_supercell_phase1_matches_oracle(setup, rng, monkeypatch):
-    """Two-level phase 1 (supercell grouping, normally >4096 clusters)
-    must stay exact: force it on at the teapot's cluster count, including
-    a group size that does NOT divide the cluster count (padding path)."""
-    import raytracing_tpu.kernels.traverse as T
-
-    mesh, accel, o, d = setup
-    monkeypatch.setattr(T, "_SUPERCELL_MIN_C", 4)
-    monkeypatch.setattr(T, "_SUPERCELL_G", 8)
-    assert accel.num_clusters % 8 != 0 or accel.num_clusters > 8
-    hb = nearest_hit_brute(triangle_soa(mesh.verts, mesh.tri_v), o, d)
-    hp = nearest_hit_pallas(mesh, accel, o, d, interpret=True)
-    m = np.asarray(hb.hit)
-    np.testing.assert_array_equal(m, np.asarray(hp.hit))
-    np.testing.assert_array_equal(np.asarray(hb.tri)[m], np.asarray(hp.tri)[m])
-    np.testing.assert_allclose(np.asarray(hb.t)[m], np.asarray(hp.t)[m],
-                               rtol=1e-5)
+def test_visit_list_overflow_anyhit(setup, rng, monkeypatch):
+    mesh, accel, _, _ = setup
+    monkeypatch.setattr(T, "MAX_VISITS", 2)
+    n = 64
+    o = jnp.asarray(rng.uniform(-1, 1, size=(n, 3)).astype(np.float32))
+    d = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32))
     ab = any_hit_brute(triangle_soa(mesh.verts, mesh.tri_v), o, d)
     ap = any_hit_pallas(mesh, accel, o, d, interpret=True)
     np.testing.assert_array_equal(np.asarray(ab), np.asarray(ap))
+    assert np.asarray(ab).any()
 
 
 def test_pallas_large_scene_early_exit_matches_oracle(rng):
-    # >2048 clusters triggers the wider visit lists + batched front-to-back
-    # early exit; results must still match the oracle exactly.
+    """A finely tessellated scene (101k triangles, >6k clusters of 16):
+    long front-to-back visit lists and the per-visit best-t skip must still
+    reproduce the oracle exactly."""
     from raytracing_tpu.geometry.scene import subdivided_teapot_mesh
-    from raytracing_tpu.geometry.mesh import triangle_soa
-    from raytracing_tpu.ops.trace import nearest_hit_brute
-    from raytracing_tpu.kernels import traverse as tr
 
     mesh = subdivided_teapot_mesh(levels=2)  # 101k tris
     accel = build_cluster_accel(mesh, cluster_size=16)
-    assert accel.num_clusters > tr._EARLY_EXIT_MIN_CLUSTERS
+    assert accel.num_clusters > T.MAX_VISITS
     n = 64
     o = jnp.zeros((n, 3))
     tgt = np.array([0.0, 0.0, 3.0]) + rng.normal(size=(n, 3)) * 1.2
@@ -198,374 +145,164 @@ def test_pallas_large_scene_early_exit_matches_oracle(rng):
     hb = nearest_hit_brute(triangle_soa(mesh.verts, mesh.tri_v), o, d)
     m = np.asarray(hb.hit)
     assert m.any() and not m.all()
-    np.testing.assert_array_equal(m, np.asarray(hp.hit))
-    np.testing.assert_allclose(np.asarray(hp.t)[m], np.asarray(hb.t)[m],
-                               rtol=1e-5)
-    np.testing.assert_array_equal(np.asarray(hp.tri)[m],
-                                  np.asarray(hb.tri)[m])
+    _assert_nearest_matches(hb, hp)
 
 
-def test_shared_origin_variant_parity(rng):
-    """The origin-folded "pmto" intersector must agree with the default
-    "pmt" path on a shared-origin ray batch (identical algebra, different
-    association — ties within one rounding are the only allowed flips,
-    and this deterministic batch has none)."""
-    from raytracing_tpu.kernels.traverse import nearest_hit_soa, rays_to_soa
+@pytest.mark.parametrize("mode", ["nearest", "nearest_attrs", "anyhit",
+                                  "anyhit_tmax"])
+@pytest.mark.parametrize("cs", [8, 16, 32])
+def test_walk_matches_oracle(scene_rays, cs, mode):
+    """Walk vs the bruteforce oracle over the default scene (rest set
+    included), per cluster size and query kind: nearest hit, nearest hit
+    plus the shading attributes gathered by its triangle id, occlusion,
+    and occlusion with a per-ray t_max row."""
+    scene, o, d = scene_rays
+    mesh = scene.mesh
+    accel = build_cluster_accel(mesh, cluster_size=cs)
+    tri = triangle_soa(mesh.verts, mesh.tri_v)
+    if mode.startswith("nearest"):
+        hb = nearest_hit_brute(tri, o, d)
+        hp = nearest_hit_pallas(mesh, accel, o, d, interpret=True)
+        assert 0.2 < np.asarray(hb.hit).mean() < 0.95
+        _assert_nearest_matches(hb, hp)
+        if mode == "nearest_attrs":
+            from raytracing_tpu.models.whitted import _attribute_rows
 
-    mesh = teapot_only_mesh()
-    accel = build_cluster_accel(mesh, cluster_size=16)
-    n = 256
-    o = np.broadcast_to(np.array([0.2, -0.1, -0.5], np.float32), (n, 3))
-    tgt = np.array([0.0, 0.0, 3.0]) + rng.normal(size=(n, 3)).astype(np.float32)
-    d = (tgt - o).astype(np.float32)
-    rays8 = rays_to_soa(jnp.asarray(o.copy()), jnp.asarray(d))
-    t_a, id_a = nearest_hit_soa(accel, rays8, interpret=True)
-    t_b, id_b = nearest_hit_soa(accel, rays8, interpret=True,
-                                shared_origin=jnp.asarray(o[0]))
-    hit_a = np.isfinite(np.asarray(t_a))
-    hit_b = np.isfinite(np.asarray(t_b))
-    np.testing.assert_array_equal(hit_a, hit_b)
-    assert hit_a.any()
-    np.testing.assert_allclose(np.asarray(t_a)[hit_a],
-                               np.asarray(t_b)[hit_b], rtol=1e-5)
-    np.testing.assert_array_equal(np.asarray(id_a), np.asarray(id_b))
+            rows = np.asarray(_attribute_rows(mesh))
+            m = np.asarray(hb.hit)
+            np.testing.assert_array_equal(rows[np.asarray(hp.tri)[m]],
+                                          rows[np.asarray(hb.tri)[m]])
+        return
+    t_max = jnp.inf
+    if mode == "anyhit_tmax":
+        t_max = jnp.asarray(np.linspace(0.5, 40.0, o.shape[0])
+                            .astype(np.float32))
+    ab = any_hit_brute(tri, o, d, t_max)
+    ap = any_hit_pallas(mesh, accel, o, d, t_max=t_max, interpret=True)
+    assert 0.1 < np.asarray(ab).mean() < 0.95
+    np.testing.assert_array_equal(np.asarray(ab), np.asarray(ap))
 
 
-@pytest.mark.parametrize("t_cap", [2.0, 8.0, 40.0])
-def test_t_cap_two_phase_matches_uncapped(default_scene, rng, t_cap):
-    """The two-phase capped nearest query (capped phase 1 + survivor
-    phase 2 + full-range rest merge, see nearest_hit_attrs_soa) claims
-    EXACT equality with the uncapped walk. Scene: default two teapots +
-    ground plane, where the plane lives in the dense REST set — the
-    subtle case is a rest hit beyond the cap, which must NOT settle its
-    ray in phase 1. Rays span near hits (< cap), far ground hits
-    (> cap), and sky misses."""
-    from raytracing_tpu.kernels.traverse import (
-        nearest_hit_attrs_soa,
-        rays_to_soa,
-    )
-
-    scene = default_scene
+@pytest.mark.parametrize("n", [1, 127, 129, 300])
+def test_walk_ray_count_not_multiple_of_block(scene_rays, n):
+    """Ray counts that do not fill the last walk block are padded with
+    dead rays; the outputs keep the caller's length and agree with the
+    oracle."""
+    scene, o, d = scene_rays
+    reps = -(-n // o.shape[0])
+    o = jnp.tile(o, (reps, 1))[:n]
+    d = jnp.tile(d, (reps, 1))[:n]
     accel = build_cluster_accel(scene.mesh, cluster_size=16)
-    assert accel.rest_ids is not None  # ground plane must be rest-set
-    n = 256
-    o = rng.uniform(-1, 1, size=(n, 3)).astype(np.float32)
-    # Aim a mix: teapot bodies (near), far-down ground, and above-horizon
-    # sky — exercising done/survivor/miss lanes for every cap value.
-    tgt = np.concatenate([
-        np.array([-0.9, -2.0, 9.0]) + rng.normal(size=(n // 2, 3)) * 1.5,
-        np.array([0.0, -3.0, 60.0]) + rng.normal(size=(n // 4, 3)) * 20.0,
-        np.array([0.0, 50.0, 10.0]) + rng.normal(size=(n - n // 2 - n // 4, 3)) * 5.0,
-    ]).astype(np.float32)
-    d = tgt - o
-    rays8 = rays_to_soa(jnp.asarray(o), jnp.asarray(d))
-
-    t_ref, s_ref, a_ref = nearest_hit_attrs_soa(accel, rays8,
-                                                interpret=True)
-    t_c, s_c, a_c = nearest_hit_attrs_soa(accel, rays8, interpret=True,
-                                          t_cap=t_cap)
-    hit = np.isfinite(np.asarray(t_ref))
-    assert hit.any() and not hit.all()
-    # Meaningful split: some rays settle under the cap, some survive.
-    assert (np.asarray(t_ref)[hit] < t_cap).any()
-    np.testing.assert_array_equal(np.asarray(t_c), np.asarray(t_ref))
-    np.testing.assert_array_equal(np.asarray(s_c), np.asarray(s_ref))
-    np.testing.assert_array_equal(np.asarray(a_c), np.asarray(a_ref))
+    tri = triangle_soa(scene.mesh.verts, scene.mesh.tri_v)
+    hp = nearest_hit_pallas(scene.mesh, accel, o, d, interpret=True)
+    assert hp.t.shape == (n,) and hp.tri.shape == (n,)
+    _assert_nearest_matches(nearest_hit_brute(tri, o, d), hp)
+    ap = any_hit_pallas(scene.mesh, accel, o, d, interpret=True)
+    assert ap.shape == (n,)
+    np.testing.assert_array_equal(np.asarray(any_hit_brute(tri, o, d)),
+                                  np.asarray(ap))
 
 
-def test_ids_mode_vmem_sliced_parity(setup, monkeypatch):
-    """IDS_MODE='vmem' (ids as sliced VMEM blocks — experimental knob;
-    scalar reads from VMEM crash the REMOTE Mosaic compiler, so it is
-    interpret-only today) must still parse its operand list correctly,
-    including the early-exit walk whose tnear table rides as positional
-    operand 3."""
-    import raytracing_tpu.kernels.traverse as T
+@pytest.mark.parametrize("nearest", [True, False])
+def test_walk_dead_lanes(scene_rays, nearest):
+    """Dead lanes may carry garbage (NaN) rays: they are left out of the
+    block frustums, and the alive lanes still match the oracle."""
+    scene, o, d = scene_rays
+    n = o.shape[0]
+    alive = np.arange(n) % 3 != 0
+    o_g = jnp.where(alive[:, None], o, jnp.nan)
+    d_g = jnp.where(alive[:, None], d, jnp.nan)
+    accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    # Culling sees only alive lanes: garbage in the dead ones changes
+    # no visit list.
+    lists = [T.visit_lists(T._pad_rays(T.rays_to_soa(oo, dd,
+                                                     jnp.asarray(alive)),
+                                       T.RAY_BLOCK),
+                           accel.cluster_min, accel.cluster_max)
+             for oo, dd in ((o_g, d_g), (o, d))]
+    np.testing.assert_array_equal(np.asarray(lists[0][1]),
+                                  np.asarray(lists[1][1]))
+    np.testing.assert_array_equal(np.asarray(lists[0][0]),
+                                  np.asarray(lists[1][0]))
+    tri = triangle_soa(scene.mesh.verts, scene.mesh.tri_v)
+    if nearest:
+        hp = nearest_hit_pallas(scene.mesh, accel, o_g, d_g,
+                                alive=jnp.asarray(alive), interpret=True)
+        hb = nearest_hit_brute(tri, o, d)
+        m = np.asarray(hb.hit) & alive
+        np.testing.assert_array_equal(np.asarray(hp.hit)[alive],
+                                      np.asarray(hb.hit)[alive])
+        np.testing.assert_array_equal(np.asarray(hp.tri)[m],
+                                      np.asarray(hb.tri)[m])
+    else:
+        ap = any_hit_pallas(scene.mesh, accel, o_g, d_g,
+                            alive=jnp.asarray(alive), interpret=True)
+        ab = any_hit_brute(tri, o, d)
+        np.testing.assert_array_equal(np.asarray(ap)[alive],
+                                      np.asarray(ab)[alive])
 
+
+def test_all_dead_blocks_visit_nothing(scene_rays):
+    scene, o, d = scene_rays
+    accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    rays8 = T._pad_rays(T.rays_to_soa(o, d, jnp.zeros(o.shape[0], bool)),
+                        T.RAY_BLOCK)
+    _, cnt = T.visit_lists(rays8, accel.cluster_min, accel.cluster_max)
+    assert int(cnt.max()) == 0
+
+
+def test_visit_lists_hold_every_hit_cluster(scene_rays):
+    """Culling is conservative: the cluster holding each ray's oracle hit
+    is in its block's visit list (or the block overflows to a full
+    scan)."""
+    scene, o, d = scene_rays
+    accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    rays8 = T._pad_rays(T.rays_to_soa(o, d), T.RAY_BLOCK)
+    ids, cnt = T.visit_lists(rays8, accel.cluster_min, accel.cluster_max)
+    ids, cnt = np.asarray(ids), np.asarray(cnt)
+    hb = nearest_hit_brute(triangle_soa(scene.mesh.verts, scene.mesh.tri_v),
+                           o, d)
+    slot_of = {int(t): s for s, t in enumerate(np.asarray(accel.order))
+               if np.asarray(accel.slot_valid)[s]}
+    checked = 0
+    for r in np.nonzero(np.asarray(hb.hit))[0]:
+        tri_id = int(np.asarray(hb.tri)[r])
+        if tri_id not in slot_of:
+            continue  # rest-set triangle: merged outside the walk
+        b = r // T.RAY_BLOCK
+        cluster = slot_of[tri_id] // accel.cluster_size
+        w = ids.shape[1]
+        assert cnt[b] > w or cluster in ids[b, :cnt[b]]
+        checked += 1
+    assert checked > 20
+
+
+@pytest.mark.parametrize("wrt", ["verts", "origins", "directions"])
+def test_grad_rule_matches_bruteforce(setup, wrt):
+    """The lazy-t VJP (forward = kernel t, backward = live-vertex
+    Möller–Trumbore) gives the bruteforce backend's gradients."""
     mesh, accel, o, d = setup
-    ref = nearest_hit_pallas(mesh, accel, o, d, interpret=True)
-    monkeypatch.setattr(T, "IDS_MODE", "vmem")
-    got = nearest_hit_pallas(mesh, accel, o, d, interpret=True)
-    np.testing.assert_array_equal(np.asarray(ref.hit), np.asarray(got.hit))
-    np.testing.assert_array_equal(np.asarray(ref.tri), np.asarray(got.tri))
-    np.testing.assert_array_equal(np.asarray(ref.t), np.asarray(got.t))
-    monkeypatch.setattr(T, "_EARLY_EXIT_MIN_CLUSTERS", 1)
-    got2 = nearest_hit_pallas(mesh, accel, o, d, interpret=True)
-    np.testing.assert_array_equal(np.asarray(ref.t), np.asarray(got2.t))
-    np.testing.assert_array_equal(np.asarray(ref.tri), np.asarray(got2.tri))
+    o, d = o[:48], d[:48]
+    tri_of = lambda m: triangle_soa(m.verts, m.tri_v)  # noqa: E731
 
+    def loss(fn):
+        def f(verts, o_, d_):
+            m = mesh._replace(verts=verts)
+            h = fn(m, o_, d_)
+            return jnp.sum(jnp.where(h.hit, h.t, 0.0) ** 2)
+        return f
 
-def test_camera_mode_matches_pack_path():
-    """Camera mode (in-kernel ray derivation, nearest_hit_camera_soa) must
-    match tracing the materialized block-order camera pack: identical hit
-    masks and winning triangles, t within float tolerance (XLA may
-    FMA-contract the fused in-kernel/lazy direction math differently from
-    the materialized-pack reads — ulp-level t differences on a few % of
-    lanes, same contract as the other parity tests)."""
-    from raytracing_tpu.config import RenderConfig
-    from raytracing_tpu.geometry.scene import build_default_scene
-    from raytracing_tpu.kernels.traverse import (
-        nearest_hit_camera_soa, nearest_hit_soa,
-    )
-    from raytracing_tpu.models.camera import block_permutation, camera_rays
-    from raytracing_tpu.ops.sampling import stratified_offsets
-
-    w = h = 48
-    spp = 4
-    cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp)
-    scene = build_default_scene(t=0.0)
-    accel = build_cluster_accel(scene.mesh, cluster_size=16)
-
-    o, d = camera_rays(cfg)
-    perm, _ = block_permutation(spp, h, w, 16, 16)
-    on = np.asarray(o).reshape(-1, 3)[np.asarray(perm)]
-    dn = np.asarray(d).reshape(-1, 3)[np.asarray(perm)]
-    n = on.shape[0]
-    rays8 = jnp.asarray(np.concatenate(
-        [on.T, np.ones((1, n), np.float32), dn.T,
-         np.ones((1, n), np.float32)], axis=0))
-
-    t0, tri0 = nearest_hit_soa(accel, rays8, interpret=True,
-                               shared_origin=jnp.zeros(3))
-    offs = stratified_offsets(spp)
-    t1, s1, a1 = nearest_hit_camera_soa(accel, offs, width=w, height=h,
-                                        spp=spp, interpret=True,
-                                        with_attrs=True)
-    t0n, t1n = np.asarray(t0), np.asarray(t1)
-    hit = np.isfinite(t1n)
-    np.testing.assert_array_equal(np.isfinite(t0n), hit)
-    np.testing.assert_allclose(t0n[hit], t1n[hit], rtol=1e-5)
-    assert 0.2 < hit.mean() < 0.9
-    order_ext = np.asarray(accel.order_ext)
-    tri1 = np.where(hit, order_ext[np.where(hit, np.asarray(s1), 0)], 0)
-    np.testing.assert_array_equal(np.asarray(tri0), tri1)
-    # attrs: winner normals must be finite and zero on miss lanes
-    a1 = np.asarray(a1)
-    assert np.isfinite(a1).all()
-    assert (a1[:, ~hit] == 0.0).all()
-
-    # CHUNKED camera mode (the production render's per-chunk primary
-    # level): covering tiles [base, base+tiles) with a TRACED base must
-    # reproduce the full-frame walk's slice bit-exactly.
-    rt = spp * 16 * 16
-    base, tiles = 3, 4
-
-    @jax.jit
-    def chunked(b):
-        return nearest_hit_camera_soa(accel, offs, width=w, height=h,
-                                      spp=spp, interpret=True,
-                                      tile_base=b, tiles=tiles)
-
-    t2, s2 = chunked(jnp.int32(base))
-    sl = slice(base * rt, (base + tiles) * rt)
-    # Same winners everywhere; t to the parity tolerance above (the
-    # traced ray_base blocks constant-folding of the direction math, so
-    # XLA may FMA-contract the rest-merge differently between programs).
-    np.testing.assert_array_equal(np.asarray(s1)[sl], np.asarray(s2))
-    t1s, t2n = np.asarray(t1)[sl], np.asarray(t2)
-    hit2 = np.isfinite(t2n)
-    np.testing.assert_array_equal(np.isfinite(t1s), hit2)
-    np.testing.assert_allclose(t1s[hit2], t2n[hit2], rtol=1e-5)
-
-
-def test_lane_cull_modes_parity(monkeypatch):
-    """Both lane-cull modes (in-kernel cond pre-test, phase-2.5 dense
-    refine) must reproduce the uncull walk exactly on alive lanes — the
-    pre-test only skips clusters no lane enters."""
-    import raytracing_tpu.kernels.traverse as T
-    from raytracing_tpu.geometry.scene import build_default_scene
-
-    rng = np.random.default_rng(7)
-    n = 2048
-    # Incoherent bounce-like rays: origins near the scene, random dirs.
-    o = jnp.asarray(rng.uniform(-3, 3, (n, 3)).astype(np.float32)
-                    + np.array([1, -2, 7], np.float32))
-    d = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32))
-    alive = jnp.asarray(rng.uniform(size=n) > 0.1)
-    scene = build_default_scene(t=0.0)
-    accel = build_cluster_accel(scene.mesh, cluster_size=16)
-    rays8 = T.rays_to_soa(o, d, alive=alive)
-
-    outs = {}
-    for tag, lc, mode in (("off", False, "kernel"),
-                          ("kernel", True, "kernel"),
-                          ("refine", True, "refine")):
-        monkeypatch.setattr(T, "_LANE_CULL_MODE", mode)
-        t, slot, attrs = T.nearest_hit_attrs_soa(
-            accel, rays8, interpret=True, early_exit=True, lane_cull=lc)
-        outs[tag] = (np.asarray(t), np.asarray(slot), np.asarray(attrs))
-    al = np.asarray(alive)
-    for tag in ("kernel", "refine"):
-        np.testing.assert_array_equal(outs["off"][0][al], outs[tag][0][al])
-        np.testing.assert_array_equal(outs["off"][1][al], outs[tag][1][al])
-        np.testing.assert_array_equal(outs["off"][2][:, al],
-                                      outs[tag][2][:, al])
-    assert np.isfinite(outs["off"][0][al]).any()
-
-
-def test_camera_mode_chunk_overrun_clamps():
-    """A chunked camera launch overrunning the frame's block grid clamps
-    padding tiles/rays to the last block (mirroring block_ray_ids):
-    in-frame rows match the full-frame walk, overrun rows are finite."""
-    from raytracing_tpu.geometry.scene import build_default_scene
-    from raytracing_tpu.kernels.traverse import nearest_hit_camera_soa
-    from raytracing_tpu.ops.sampling import stratified_offsets
-
-    w = h = 48
-    spp = 4
-    rt = spp * 16 * 16
-    nt = (w // 16) * (h // 16)
-    scene = build_default_scene(t=0.0)
-    accel = build_cluster_accel(scene.mesh, cluster_size=16)
-    offs = stratified_offsets(spp)
-    t_full, s_full = nearest_hit_camera_soa(
-        accel, offs, width=w, height=h, spp=spp, interpret=True)
-    base, tiles = nt - 2, 4  # 2 real + 2 overrun tiles
-    t_c, s_c = nearest_hit_camera_soa(
-        accel, offs, width=w, height=h, spp=spp, interpret=True,
-        tile_base=jnp.int32(base), tiles=tiles)
-    t_c, s_c = np.asarray(t_c), np.asarray(s_c)
-    np.testing.assert_array_equal(np.asarray(s_full)[base * rt:], s_c[:2 * rt])
-    tf = np.asarray(t_full)[base * rt:]
-    m = np.isfinite(t_c[:2 * rt])
-    np.testing.assert_array_equal(np.isfinite(tf), m)
-    np.testing.assert_allclose(tf[m], t_c[:2 * rt][m], rtol=1e-5)
-    # Overrun rows: clamped repeats of the last block — same results.
-    np.testing.assert_array_equal(s_c[2 * rt:3 * rt], s_c[1 * rt:2 * rt])
-
-
-def test_camera_mode_refined_pooling_exact(monkeypatch):
-    """The 2-stage refined supertile culling (pool 2x2 blocks -> per-tile
-    interval re-test of the candidates) must produce EXACTLY the same
-    results as unpooled per-tile lists — it only reorganizes phase 2."""
-    import raytracing_tpu.kernels.traverse as T
-    from raytracing_tpu.geometry.scene import build_default_scene
-    from raytracing_tpu.ops.sampling import stratified_offsets
-
-    w, h, spp = 48, 32, 4  # odd block grid: exercises phase padding
-    scene = build_default_scene(t=0.0)
-    accel = build_cluster_accel(scene.mesh, cluster_size=16)
-    offs = stratified_offsets(spp)
-    t0, s0 = T.nearest_hit_camera_soa(accel, offs, width=w, height=h,
-                                      spp=spp, interpret=True)
-    monkeypatch.setattr(T, "_SUPERTILE_MIN_C", 0)  # force pooling+refine
-    t1, s1 = T.nearest_hit_camera_soa(accel, offs, width=w, height=h,
-                                      spp=spp, interpret=True)
-    np.testing.assert_array_equal(np.asarray(t0), np.asarray(t1))
-    np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
-    # Smaller ray tiles (bh=bw=8): the pooling group widens to 4x4 blocks
-    # (constant 32x32-pixel supertile footprint) — results must still be
-    # exactly the unpooled per-tile walk's.
-    t2, s2 = T.nearest_hit_camera_soa(accel, offs, width=w, height=h,
-                                      spp=spp, interpret=True, bh=8, bw=8)
-    monkeypatch.setattr(T, "_SUPERTILE_MIN_C", 10 ** 9)  # pooling OFF
-    t3, s3 = T.nearest_hit_camera_soa(accel, offs, width=w, height=h,
-                                      spp=spp, interpret=True, bh=8, bw=8)
-    np.testing.assert_array_equal(np.asarray(t2), np.asarray(t3))
-    np.testing.assert_array_equal(np.asarray(s2), np.asarray(s3))
-
-
-@pytest.fixture(scope="module")
-def wq_setup(rng):
-    """Mixed coherent/incoherent batch with dead lanes over the default
-    scene — the work-queue walk's target workload shape."""
-    from raytracing_tpu.geometry.scene import build_default_scene
-    from raytracing_tpu.kernels.traverse import rays_to_soa
-
-    scene = build_default_scene(t=0.0)
-    # cs=128: the lane-aligned size the DMA fetch requires — with a
-    # smaller size the wq flag silently falls through to the dynamic
-    # path and these tests would compare it against itself.
-    accel = build_cluster_accel(scene.mesh, cluster_size=128,
-                                variants=("pmt",))
-    n = 2048
-    o1 = np.zeros((n // 2, 3), np.float32)
-    xs = rng.uniform(-0.4, 0.4, (n // 2, 2)).astype(np.float32)
-    d1 = np.concatenate([xs, np.ones((n // 2, 1), np.float32)], axis=1)
-    o2 = rng.uniform(-3, 3, (n // 2, 3)).astype(np.float32)
-    o2[:, 2] += 7.0
-    d2 = rng.normal(size=(n // 2, 3)).astype(np.float32)
-    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
-    o = np.concatenate([o1, o2])
-    d = np.concatenate([d1, d2])
-    alive = rng.uniform(size=n) > 0.1
-    rays8 = rays_to_soa(jnp.asarray(o), jnp.asarray(d),
-                        alive=jnp.asarray(alive))
-    return scene.mesh, accel, rays8, alive
-
-
-def test_wq_nearest_attrs_matches_dynamic(wq_setup):
-    """Work-queue walk (visit loop as a grid axis, streamed block
-    operands + per-ray refined lists) must be BIT-identical to the
-    dynamic kernel on alive lanes — t, slot ids, and attr planes."""
-    from raytracing_tpu.kernels.traverse import nearest_hit_attrs_soa
-
-    _, accel, rays8, alive = wq_setup
-    t0, s0, a0 = nearest_hit_attrs_soa(accel, rays8, interpret=True)
-    t1, s1, a1 = nearest_hit_attrs_soa(accel, rays8, interpret=True,
-                                       wq=True)
-    m = alive
-    np.testing.assert_array_equal(np.asarray(t0)[m], np.asarray(t1)[m])
-    np.testing.assert_array_equal(np.asarray(s0)[m], np.asarray(s1)[m])
-    np.testing.assert_array_equal(np.asarray(a0)[:, m],
-                                  np.asarray(a1)[:, m])
-
-
-def test_wq_anyhit_matches_dynamic(wq_setup):
-    """Occlusion wq parity, incl. the zero-visit-tile init (a tile with
-    no visits must read NOT occluded) and the per-ray t_max row."""
-    from raytracing_tpu.kernels.traverse import any_hit_soa
-
-    _, accel, rays8, alive = wq_setup
-    m = alive
-    occ0 = any_hit_soa(accel, rays8, interpret=True)
-    occ1 = any_hit_soa(accel, rays8, interpret=True, wq=True)
-    np.testing.assert_array_equal(np.asarray(occ0)[m], np.asarray(occ1)[m])
-    tmax = jnp.asarray(
-        np.linspace(0.5, 30.0, rays8.shape[1]).astype(np.float32))
-    occ2 = any_hit_soa(accel, rays8, t_max=tmax, interpret=True)
-    occ3 = any_hit_soa(accel, rays8, t_max=tmax, interpret=True, wq=True)
-    np.testing.assert_array_equal(np.asarray(occ2)[m], np.asarray(occ3)[m])
-
-
-def test_wq_overflow_residual(wq_setup, monkeypatch):
-    """Force tiny visit lists so incoherent tiles OVERFLOW (cnt > width):
-    the dma kernel's in-kernel full scan (and the grid impl's residual
-    launch) must restore exactness."""
-    import raytracing_tpu.kernels.traverse as T
-
-    _, accel, rays8, alive = wq_setup
-    t0, s0, a0 = T.nearest_hit_attrs_soa(accel, rays8, interpret=True)
-    monkeypatch.setattr(T, "_MAX_VISITS", 8)
-    monkeypatch.setattr(T, "_SMEM_IDS_BUDGET_BYTES", 4 * 8 * 8 * 8)
-    for impl in ("dma", "grid"):
-        monkeypatch.setattr(T, "_WQ_IMPL", impl)
-        t1, s1, a1 = T.nearest_hit_attrs_soa(accel, rays8, interpret=True,
-                                             wq=True)
-        m = alive
-        np.testing.assert_array_equal(np.asarray(t0)[m],
-                                      np.asarray(t1)[m], err_msg=impl)
-        np.testing.assert_array_equal(np.asarray(s0)[m],
-                                      np.asarray(s1)[m], err_msg=impl)
-        np.testing.assert_array_equal(np.asarray(a0)[:, m],
-                                      np.asarray(a1)[:, m], err_msg=impl)
-
-
-def test_wq_gathered_refine_matches_dense(wq_setup, monkeypatch):
-    """The two phase-2.5 refinement forms — dense all-cluster mask vs
-    gathered candidate lists — must produce identical walks."""
-    import raytracing_tpu.kernels.traverse as T
-
-    _, accel, rays8, alive = wq_setup
-    t0, s0, a0 = T.nearest_hit_attrs_soa(accel, rays8, interpret=True,
-                                         wq=True)
-    monkeypatch.setattr(T, "_REFINE_DENSE_MAX_C", 0)  # force gathered
-    t1, s1, a1 = T.nearest_hit_attrs_soa(accel, rays8, interpret=True,
-                                         wq=True)
-    m = alive
-    np.testing.assert_array_equal(np.asarray(t0)[m], np.asarray(t1)[m])
-    np.testing.assert_array_equal(np.asarray(s0)[m], np.asarray(s1)[m])
-    np.testing.assert_array_equal(np.asarray(a0)[:, m],
-                                  np.asarray(a1)[:, m])
+    argnum = {"verts": 0, "origins": 1, "directions": 2}[wrt]
+    gp = jax.grad(loss(lambda m, o_, d_: nearest_hit_pallas(
+        m, accel, o_, d_, interpret=True)), argnums=argnum)(mesh.verts, o, d)
+    gb = jax.grad(loss(lambda m, o_, d_: nearest_hit_brute(
+        tri_of(m), o_, d_)), argnums=argnum)(mesh.verts, o, d)
+    assert np.abs(np.asarray(gb)).max() > 0
+    # Same f32 expression for the winning triangle on both sides; the
+    # bruteforce scan's fused vector form rounds differently (the
+    # renderer-level test_grad_pallas_backend_matches_brute bound).
+    np.testing.assert_allclose(np.asarray(gp), np.asarray(gb), rtol=2e-4,
+                               atol=1e-6)
 
 
 def test_resolve_backend_auto():
@@ -577,26 +314,85 @@ def test_resolve_backend_auto():
         assert resolve_backend(b) == b
 
 
-def test_camera_mode_dma_fetch_matches_resident(monkeypatch):
-    """Camera-mode DMA block fetch (blocks in HBM, double-buffered
-    per-visit copies) must be bit-identical to the resident walk."""
-    import raytracing_tpu.kernels.traverse as T
-    from raytracing_tpu.geometry.scene import build_default_scene
-    from raytracing_tpu.ops.sampling import stratified_offsets
+def test_resolve_backend_auto_on_gpu(monkeypatch):
+    from raytracing_tpu import tracer
 
-    w, h, spp = 64, 48, 2
+    monkeypatch.setattr(tracer.jax, "default_backend", lambda: "gpu")
+    assert tracer.resolve_backend("auto") == "pallas"
+
+
+def test_resolve_backend_rejects_unknown():
+    from raytracing_tpu.tracer import resolve_backend
+
+    with pytest.raises(ValueError, match="unknown backend"):
+        resolve_backend("megakernel")
+
+
+@pytest.mark.parametrize("query", ["nearest", "anyhit"])
+def test_pallas_without_gpu_raises(setup, query):
+    """Without a GPU the kernel never falls back silently: asking for it
+    without interpret=True is an error."""
+    mesh, accel, o, d = setup
+    fn = nearest_hit_pallas if query == "nearest" else any_hit_pallas
+    with pytest.raises(RuntimeError, match="CUDA GPU"):
+        fn(mesh, accel, o, d)
+
+
+def test_render_pallas_without_gpu_raises(default_scene):
+    from raytracing_tpu.config import RenderConfig
+    from raytracing_tpu.models.whitted import render
+
+    accel = build_cluster_accel(default_scene.mesh, cluster_size=16)
+    cfg = RenderConfig(width=16, height=16, samples_per_pixel=1,
+                       backend="pallas", chunk_size=256)
+    with pytest.raises(RuntimeError, match="interpret=True"):
+        render(default_scene, cfg, accel=accel)
+
+
+def test_rays_to_soa_layout():
+    o = jnp.arange(6, dtype=jnp.float32).reshape(2, 3)
+    d = -o
+    p = np.asarray(T.rays_to_soa(o, d, jnp.array([True, False]),
+                                 jnp.array([2.0, 5.0])))
+    np.testing.assert_array_equal(p[0:3], np.asarray(o).T)
+    np.testing.assert_array_equal(p[3], [1.0, 0.0])
+    np.testing.assert_array_equal(p[4:7], np.asarray(d).T)
+    np.testing.assert_array_equal(p[7], [2.0, 5.0])
+    p = np.asarray(T._pad_rays(T.rays_to_soa(o, d), 8))
+    assert p.shape == (8, 8) and (p[3, 2:] == 0).all()  # dead padding
+
+
+@pytest.mark.parametrize("nearest", [True, False])
+def test_walk_kernel_lowers_for_cuda(setup, nearest, monkeypatch):
+    """The kernel lowers to Triton IR for a CUDA device (no card needed):
+    catches primitives the Triton route cannot express, which the
+    interpreter would accept."""
+    _, accel, o, d = setup
+    monkeypatch.setattr(T, "_require_gpu", lambda interpret: None)
+    f = jax.jit(lambda r: T._walk(accel, r, 1e-8, nearest, interpret=False))
+    text = f.trace(T.rays_to_soa(o, d)).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert "custom_call @__gpu$xla.gpu.triton" in text
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cs", [16, 32])
+def test_walk_compiled_matches_oracle_on_gpu(gpu, cs):
+    """The compiled kernel (no interpreter) against the oracle."""
     scene = build_default_scene(t=0.0)
-    accel = build_cluster_accel(scene.mesh, cluster_size=128,
-                                variants=("pmt",))
-    offs = stratified_offsets(spp)
-    monkeypatch.setattr(T, "_CAMERA_FETCH", "resident")
-    t0, s0, a0 = T.nearest_hit_camera_soa(accel, offs, width=w, height=h,
-                                          spp=spp, interpret=True,
-                                          with_attrs=True)
-    monkeypatch.setattr(T, "_CAMERA_FETCH", "dma")
-    t1, s1, a1 = T.nearest_hit_camera_soa(accel, offs, width=w, height=h,
-                                          spp=spp, interpret=True,
-                                          with_attrs=True)
-    np.testing.assert_array_equal(np.asarray(t0), np.asarray(t1))
-    np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
-    np.testing.assert_array_equal(np.asarray(a0), np.asarray(a1))
+    rng = np.random.default_rng(5)
+    n = 4096
+    o = jnp.zeros((n, 3))
+    d = jnp.asarray(np.concatenate(
+        [rng.uniform(-1, 1, (n, 2)), np.ones((n, 1))], 1).astype(np.float32))
+    accel = build_cluster_accel(scene.mesh, cluster_size=cs)
+    tri = triangle_soa(scene.mesh.verts, scene.mesh.tri_v)
+    hb = nearest_hit_brute(tri, o, d)
+    hp = nearest_hit_pallas(scene.mesh, accel, o, d)
+    m = np.asarray(hb.hit)
+    agree = (m == np.asarray(hp.hit)) & (
+        ~m | (np.asarray(hb.tri) == np.asarray(hp.tri)))
+    assert agree.mean() >= 0.9999
+    np.testing.assert_array_equal(np.asarray(any_hit_brute(tri, o, d)),
+                                  np.asarray(any_hit_pallas(scene.mesh,
+                                                            accel, o, d)))

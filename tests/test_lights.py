@@ -47,7 +47,7 @@ def test_soft_shadow_has_penumbra():
 def test_area_light_backends_agree_in_expectation():
     scene = _scene(1.5)
     accel = build_cluster_accel(scene.mesh, cluster_size=16)
-    cfg_p = CFG.replace(backend="pallas", light_samples=4)
+    cfg_p = CFG.replace(backend="pallas", interpret=True, light_samples=4)
     cfg_b = CFG.replace(backend="bruteforce", light_samples=4)
     ip = np.asarray(render(scene, cfg_p, accel=accel,
                            key=jax.random.PRNGKey(1)))

@@ -111,6 +111,25 @@ def test_rotation_matrix():
     np.testing.assert_allclose(R0, np.eye(3), atol=1e-7)
 
 
+def test_apply_pose_matches_numpy(teapot_mesh):
+    """apply_pose against a float64 numpy Rodrigues rotation about the
+    object centroid: f32 accuracy (the matmuls ask for HIGHEST precision,
+    so a GPU does not run them in TF32)."""
+    pose = np.array([0.3, -0.2, 0.5, 0.1, -0.4, 0.25])
+    moved = np.asarray(apply_pose(teapot_mesh, jnp.asarray(pose, jnp.float32),
+                                  obj_index=0).verts)
+    v = np.asarray(teapot_mesh.verts, np.float64)
+    used = np.zeros(len(v), bool)
+    used[np.asarray(teapot_mesh.tri_v).ravel()] = True
+    pivot = v[used].mean(axis=0)
+    theta = np.linalg.norm(pose[:3])
+    k = pose[:3] / theta
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    rot = np.eye(3) + np.sin(theta) * kx + (1 - np.cos(theta)) * kx @ kx
+    want = np.where(used[:, None], (v - pivot) @ rot.T + pivot + pose[3:], v)
+    np.testing.assert_allclose(moved, want, rtol=0, atol=2e-5)
+
+
 def test_apply_pose_moves_only_target_object():
     a = {
         "verts": np.eye(3, dtype=np.float32),

@@ -96,24 +96,3 @@ def test_native_subdivide_matches_numpy(rng, build_native):
     v_nat, t_nat = subdivide_arrays(verts, tris, levels=2)
     np.testing.assert_array_equal(v_nat, v_np)
     np.testing.assert_array_equal(t_nat, t_np)
-
-
-def test_native_kernel_blocks_match_numpy(rng):
-    """rt_kernel_blocks must reproduce _kernel_blocks_host bit-for-bit
-    (csrc builds with -ffp-contract=off so f32 rounding matches numpy)."""
-    from raytracing_tpu.accel import packets as pk
-
-    s_tri, cs = 2048, 16
-    c = s_tri // cs
-    tv = rng.normal(size=(s_tri, 3, 3)).astype(np.float32)
-    tv[::17, 1] = tv[::17, 0]  # degenerate padding-like triangles
-    valid = rng.random(s_tri) > 0.1
-    old = native.available
-    native.available = lambda: False
-    try:
-        want = pk._kernel_blocks_host(tv, valid, c, cs, True)
-    finally:
-        native.available = old
-    got = native.kernel_blocks(tv, valid, c, cs, True)
-    for w, g, name in zip(want, got, ("tri", "pmt", "woop")):
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(w), err_msg=name)

@@ -114,20 +114,18 @@ def test_gradients_replicated_across_devices():
 
 
 def test_sharded_render_pallas_kernels():
-    """The PALLAS kernel path (interpret mode on CPU devices) under
+    """The PALLAS walk (in the interpreter on CPU devices) under
     shard_map — visit-list culling + walk + rest merge all run inside the
-    sharded region, per device shard (VERDICT r1: the sharded tests must
-    exercise the real kernels, not only the bruteforce stand-in)."""
-    import __graft_entry__  # reuse its >=4-cluster bumpy-grid scene? no: local
-
+    sharded region, per device shard, so the sharded tests exercise the
+    real kernel and not only the bruteforce stand-in."""
     from raytracing_tpu.geometry.scene import build_default_scene
 
     scene = build_default_scene(t=0.0)
     accel = build_cluster_accel(scene.mesh, cluster_size=16)
     dmesh = make_device_mesh(8)
     cfg = dataclasses.replace(
-        CFG, backend="pallas", chunk_size=64, diffuse_depth=0,
-        reflect_depth=1, width=16, height=16)
+        CFG, backend="pallas", interpret=True, chunk_size=64,
+        diffuse_depth=0, reflect_depth=1, width=16, height=16)
     key = jax.random.PRNGKey(5)
     img_p = np.asarray(render_sharded(scene, cfg, dmesh, accel=accel,
                                       key=key))

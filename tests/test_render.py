@@ -200,15 +200,14 @@ def test_gi_accel_parity():
     both accels cover the same triangle set, so every nearest hit, shadow
     verdict, and RNG draw is identical — only the walk partition differs."""
     scene = _bumpy_grid_scene()
-    cfg = small_cfg(width=16, height=16, backend="pallas",
+    cfg = small_cfg(width=16, height=16, backend="pallas", interpret=True,
                     chunk_size=16 * 16, reflect_depth=1, diffuse_depth=2,
                     diffuse_scatter=2)
     accel = build_cluster_accel(scene.mesh, cluster_size=16)
     coarse = build_cluster_accel(scene.mesh, cluster_size=64)
     assert accel.num_clusters >= 4 * coarse.num_clusters >= 16
     # Oracle: the cluster backend (render() keeps RNG/ray order identical
-    # across backends, so images match exactly) — avoids paying a second
-    # pallas-interpret compile just for the no-gi_accel arm.
+    # across backends, so images match exactly).
     a = np.asarray(render(scene, cfg.replace(backend="cluster"),
                           accel=accel, key=jax.random.PRNGKey(5)))
     b = np.asarray(render(scene, cfg, accel=accel, gi_accel=coarse,
@@ -217,68 +216,12 @@ def test_gi_accel_parity():
     np.testing.assert_allclose(a, b, atol=1e-6)
 
 
-def test_primary_shared_origin_knob(default_scene):
-    """primary_shared_origin routes the primary level through the
-    origin-folded intersector; the image must match the default path
-    (allclose — association may differ within one rounding)."""
-    cfg = small_cfg(width=16, height=16, backend="pallas",
-                    chunk_size=16 * 16, reflect_depth=1, diffuse_depth=0)
-    accel = build_cluster_accel(default_scene.mesh, cluster_size=16)
-    a = np.asarray(render(default_scene, cfg, accel=accel,
-                          key=jax.random.PRNGKey(5)))
-    b = np.asarray(render(default_scene,
-                          cfg.replace(primary_shared_origin=True),
-                          accel=accel, key=jax.random.PRNGKey(5)))
-    assert np.isfinite(b).all()
-    np.testing.assert_allclose(a, b, atol=1e-5)
-
-
-def test_gi_ray_tile_knob(default_scene):
-    """gi_ray_tile shrinks the bounce levels' culling tiles — a pure
-    performance knob: the image must match the default exactly (same
-    candidate supersets, same intersection math, same RNG)."""
-    cfg = small_cfg(width=16, height=16, backend="pallas",
-                    chunk_size=16 * 16, reflect_depth=2, diffuse_depth=2,
-                    diffuse_scatter=2)
-    accel = build_cluster_accel(default_scene.mesh, cluster_size=16)
-    a = np.asarray(render(default_scene, cfg, accel=accel,
-                          key=jax.random.PRNGKey(5)))
-    b = np.asarray(render(default_scene, cfg.replace(gi_ray_tile=256),
-                          accel=accel, key=jax.random.PRNGKey(5)))
-    assert np.isfinite(b).all()
-    np.testing.assert_array_equal(a, b)
-
-
-def test_render_camera_mode_matches_pack_path(default_scene, monkeypatch):
-    """With primary_shared_origin, render()'s primary level runs the
-    camera-mode walk (rays derived in kernel). Forcing the pack path
-    instead (same pmto intersector, materialized rays) must produce the
-    same image to ulp tolerance: derived directions are bitwise equal to
-    the pack's and the walk's reduction rules are the same (XLA may
-    FMA-contract the fused rest-merge differently between the two
-    programs — the standard parity-test tolerance)."""
-    import raytracing_tpu.kernels.traverse as T
-
-    cfg = small_cfg(width=32, height=32, backend="pallas",
-                    chunk_size=32 * 32, reflect_depth=1, diffuse_depth=2,
-                    diffuse_scatter=2, primary_shared_origin=True)
-    accel = build_cluster_accel(default_scene.mesh, cluster_size=16)
-    assert T.camera_mode_supported(accel)
-    a = np.asarray(render(default_scene, cfg, accel=accel,
-                          key=jax.random.PRNGKey(5)))
-    monkeypatch.setattr(T, "camera_mode_supported", lambda *_, **__: False)
-    b = np.asarray(render(default_scene, cfg, accel=accel,
-                          key=jax.random.PRNGKey(5)))
-    assert np.isfinite(a).all()
-    np.testing.assert_allclose(a, b, atol=1e-5)
-
-
 def test_bin_reflect_levels_knob(default_scene):
     """bin_reflect_levels toggles the pure-reflect levels' re-bin — a
     pure performance knob: the bin permutation is undone before radiance
     accumulation and no RNG is drawn at pure-reflect levels, so the
     image must match exactly."""
-    cfg = small_cfg(width=16, height=16, backend="pallas",
+    cfg = small_cfg(width=16, height=16, backend="pallas", interpret=True,
                     chunk_size=16 * 16, reflect_depth=3, diffuse_depth=2,
                     diffuse_scatter=2)
     accel = build_cluster_accel(default_scene.mesh, cluster_size=16)
@@ -287,21 +230,5 @@ def test_bin_reflect_levels_knob(default_scene):
     b = np.asarray(render(default_scene,
                           cfg.replace(bin_reflect_levels=False),
                           accel=accel, key=jax.random.PRNGKey(5)))
-    assert np.isfinite(b).all()
-    np.testing.assert_array_equal(a, b)
-
-
-def test_gi_wq_knob(default_scene):
-    """gi_wq routes bounce-level nearest + shadow queries through the
-    DMA-prefetch walk (per-ray refined lists, HBM block table) — must be
-    bit-identical to the dynamic kernels through the full renderer."""
-    cfg = small_cfg(width=16, height=16, backend="pallas",
-                    chunk_size=16 * 16, reflect_depth=2, diffuse_depth=2,
-                    diffuse_scatter=2, gi_cluster_size=128)
-    accel = build_cluster_accel(default_scene.mesh, cluster_size=16)
-    a = np.asarray(render(default_scene, cfg.replace(gi_wq=False),
-                          accel=accel, key=jax.random.PRNGKey(5)))
-    b = np.asarray(render(default_scene, cfg, accel=accel,
-                          key=jax.random.PRNGKey(5)))
     assert np.isfinite(b).all()
     np.testing.assert_array_equal(a, b)
